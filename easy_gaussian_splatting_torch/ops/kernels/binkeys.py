@@ -1,0 +1,131 @@
+"""Binning keys for one Gaussian population: the CUDA kernel
+``csrc/binkeys.cu`` and its plain PyTorch version.
+
+Counterpart of ``easy_gaussian_splatting_tpu/ops/pallas/binkeys.py``. The
+inputs are structure-of-arrays rows of decoded values, not the TPU's
+feature-major f32 encoding:
+
+  fgeo [6, n] f32   mx, my, a, b, c, s_max
+  igeo [7, n] i32   tx0, ty0, w, count, rank, orig, livebase
+
+Outputs, cell-major: keys [n_keys, n] i64 ``(tile << rank_bits) | rank``
+(tile ``num_tiles`` when dead), flats [n_keys, n] i32 ``orig * m + j``
+(``sentinel_flat`` when dead), count_small [n] and count_full [n] i32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+FGEO_ROWS = ("mx", "my", "a", "b", "c", "s_max")
+IGEO_ROWS = ("tx0", "ty0", "w", "count", "rank", "orig", "livebase")
+
+# kernel launches made by `binkeys` (the plain version never counts)
+launches = 0
+
+
+def binkeys_plain(
+    fgeo: torch.Tensor, igeo: torch.Tensor, *, n_keys: int, m: int, ts: int,
+    tiles_x: int, num_tiles: int, rank_bits: int, sentinel_flat: int,
+):
+    """The kernel's function as a [m, n] PyTorch grid, in the expression
+    order of the JAX package's XLA grid (``rasterize_tiled.py:438-498``)."""
+    mx, my, a, b, cc, s_max = fgeo
+    tx0, ty0, w, count, rank, orig, livebase = igeo
+    j = torch.arange(m, dtype=torch.int32, device=fgeo.device)[:, None]
+    w_safe = torch.clamp(w, min=1)[None, :]
+    jy = torch.div(j, w_safe, rounding_mode="floor")
+    jx = j - jy * w_safe
+
+    x0 = ((tx0 + jx) * ts).to(torch.float32) - mx
+    y0 = ((ty0 + jy) * ts).to(torch.float32) - my
+    x1 = x0 + ts
+    y1 = y0 + ts
+    a_safe = torch.clamp(a, min=1e-12)
+    c_safe = torch.clamp(cc, min=1e-12)
+
+    def sig(dx, dy):
+        return 0.5 * a * dx * dx + 0.5 * cc * dy * dy + b * dx * dy
+
+    def edge_x(xe):
+        return sig(xe, torch.clamp(-b * xe / c_safe, min=y0, max=y1))
+
+    def edge_y(ye):
+        return sig(torch.clamp(-b * ye / a_safe, min=x0, max=x1), ye)
+
+    s_edge = torch.minimum(
+        torch.minimum(edge_x(x0), edge_x(x1)),
+        torch.minimum(edge_y(y0), edge_y(y1)),
+    )
+    inside = (x0 <= 0.0) & (0.0 <= x1) & (y0 <= 0.0) & (0.0 <= y1)
+    s_min = torch.where(inside, torch.zeros_like(s_edge), s_edge)
+    live = (j < count) & (s_min <= s_max)
+
+    count_full = live.sum(dim=0, dtype=torch.int32)
+    count_small = live[:n_keys].sum(dim=0, dtype=torch.int32)
+    key_live = live[:n_keys] & (livebase != 0)
+    tile = ((ty0 + jy[:n_keys]) * tiles_x + tx0 + jx[:n_keys]).to(torch.int64)
+    rank64 = rank.to(torch.int64)
+    keys = torch.where(
+        key_live, (tile << rank_bits) | rank64, (num_tiles << rank_bits) | rank64
+    )
+    flats = torch.where(
+        key_live, orig * m + j[:n_keys],
+        torch.full_like(key_live, sentinel_flat, dtype=torch.int32),
+    ).to(torch.int32)
+    return keys, flats, count_small, count_full
+
+
+def binkeys(
+    fgeo: torch.Tensor, igeo: torch.Tensor, *, n_keys: int, m: int, ts: int,
+    tiles_x: int, num_tiles: int, rank_bits: int, sentinel_flat: int,
+):
+    """Binning keys of one population; see the module docstring. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    kw = dict(
+        n_keys=n_keys, m=m, ts=ts, tiles_x=tiles_x, num_tiles=num_tiles,
+        rank_bits=rank_bits, sentinel_flat=sentinel_flat,
+    )
+    if fgeo.device.type == "cpu":
+        return binkeys_plain(fgeo, igeo, **kw)
+    n = fgeo.shape[1]
+    if fgeo.device.type != "cuda" or igeo.device != fgeo.device:
+        raise ValueError(f"binkeys: unsupported devices {fgeo.device}, {igeo.device}")
+    if fgeo.dtype != torch.float32 or igeo.dtype != torch.int32:
+        raise ValueError(f"binkeys: want f32/i32 rows, got {fgeo.dtype}/{igeo.dtype}")
+    if fgeo.shape != (len(FGEO_ROWS), n) or igeo.shape != (len(IGEO_ROWS), n):
+        raise ValueError(f"binkeys: bad shapes {tuple(fgeo.shape)}, {tuple(igeo.shape)}")
+    if not (fgeo.is_contiguous() and igeo.is_contiguous()):
+        raise ValueError("binkeys: inputs must be contiguous")
+    if not 0 < n_keys <= m or rank_bits + num_tiles.bit_length() > 63:
+        raise ValueError(f"binkeys: bad n_keys={n_keys}, m={m} or key width")
+    dev = fgeo.device
+    keys = torch.empty((n_keys, n), dtype=torch.int64, device=dev)
+    flats = torch.empty((n_keys, n), dtype=torch.int32, device=dev)
+    count_small = torch.empty((n,), dtype=torch.int32, device=dev)
+    count_full = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return keys, flats, count_small, count_full
+    lib = _build.load("binkeys")
+    fn = lib.egs_binkeys
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4
+        + [ctypes.c_int, ctypes.c_void_p]
+    )
+    err = fn(
+        fgeo.data_ptr(), igeo.data_ptr(), n, n_keys, m, ts, tiles_x,
+        num_tiles, rank_bits, sentinel_flat,
+        keys.data_ptr(), flats.data_ptr(), count_small.data_ptr(),
+        count_full.data_ptr(), dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"binkeys kernel launch failed: CUDA error {err}")
+    global launches
+    launches += 1
+    return keys, flats, count_small, count_full

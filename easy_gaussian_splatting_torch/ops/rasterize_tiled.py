@@ -1,0 +1,458 @@
+"""Tiled rasterization: binning + per-tile depth-ordered compositing;
+counterpart of the forward half of
+``easy_gaussian_splatting_tpu/ops/rasterize_tiled.py``.
+
+- Each Gaussian's depth RANK (a double argsort) rides in the sort key, so
+  every intersection addresses the caller's arrays by original index.
+- Binning is two-population: population A holds every Gaussian's first
+  ``small_budget`` window cells, population B the ``ov_capacity`` Gaussians
+  whose window is larger, with all ``max_tiles_w * max_tiles_h`` cells.
+  The ``binkeys`` kernel builds each population's keys with the exact
+  ellipse/tile test; one sort of the int64 keys ``(tile << rank_bits) |
+  rank`` orders intersections tile-major, depth-minor, and
+  ``searchsorted`` gives the CSR ``tile_offsets``.
+- Per-intersection features are packed once, with the Gaussian's
+  quadratic form as a tile-local polynomial, and the ``tiled_forward``
+  kernel composites each tile.
+
+Gaussians covering more than ``max_tiles_w * max_tiles_h`` tiles are
+clamped to a window centered on their tile, as in the JAX package. The
+dense reduction side channel, stripe rendering and the custom-gradient
+core come with the training and multi-device parts of the port.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+
+from .kernels import binkeys as binkeys_kernel
+from .kernels import tile_raster
+from .projection import CameraIntrinsics, project_gaussians
+from .rasterize_ref import ALPHA_THRESH
+
+DEFAULT_TILE = 32
+DEFAULT_MAX_TILES_W = 4
+DEFAULT_MAX_TILES_H = 4
+
+# The intersection capacity is rounded up to this quantum, as in the JAX
+# package, so both packages truncate at the same capacity.
+ISECT_ALIGN = 128
+# Intersection indices (CSR offsets, `last`) are int32 in the kernels.
+ISECT_ROW_LIMIT = 2**31 - 1
+# Device-memory budget per intersection slot, the JAX package's figure:
+# forward features plus the training backward's gradient rows.
+ISECT_SLOT_BYTES = 320
+
+SMALL_BUDGET = 9
+BUDGET_CANDIDATES = (2, 4, 9)
+
+
+def max_isect_cap(hbm_budget_mb: float) -> int:
+    """Largest intersection capacity inside the configured memory budget
+    and the int32 index range."""
+    return min(int(hbm_budget_mb * 1e6 / ISECT_SLOT_BYTES), ISECT_ROW_LIMIT)
+
+
+def isect_capacity(c: int, isect_mult: float) -> int:
+    """Intersection capacity of a ``c``-Gaussian render at ``isect_mult``."""
+    cap = -(-max(1, int(c * isect_mult)) // ISECT_ALIGN) * ISECT_ALIGN
+    return min(cap, (ISECT_ROW_LIMIT // ISECT_ALIGN) * ISECT_ALIGN)
+
+
+class TiledGeometry(NamedTuple):
+    tiles_x: int
+    tiles_y: int
+    tile_size: int
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles_x * self.tiles_y
+
+
+def image_geometry(height: int, width: int, tile_size: int) -> TiledGeometry:
+    return TiledGeometry(
+        tiles_x=-(-width // tile_size),
+        tiles_y=-(-height // tile_size),
+        tile_size=tile_size,
+    )
+
+
+class Binning(NamedTuple):
+    """CSR per-tile intersection lists, depth-ordered within each tile,
+    indexed in original Gaussian order."""
+
+    order: torch.Tensor  # [C] depth argsort (invalid gaussians at the end)
+    isect_orig: torch.Tensor  # [D] original gaussian index, tile-grouped
+    isect_flat: torch.Tensor  # [D] flat duplicate id orig*M+j (C*M = dead)
+    isect_tile: torch.Tensor  # [D] tile id per intersection (T = dead)
+    tile_offsets: torch.Tensor  # [T+1] i32
+    num_isects: torch.Tensor  # [] i32
+    counts: torch.Tensor  # [C] live duplicates per gaussian
+    num_overflow: torch.Tensor  # [] i32: gaussians needing > small_budget cells
+    n_gt: torch.Tensor  # [len(BUDGET_CANDIDATES)] i32: windows above each budget
+
+
+def _s_max(opacities: torch.Tensor) -> torch.Tensor:
+    """Contributing-ellipse bound sigma <= ln(opac / ALPHA_THRESH), capped at
+    the 3-sigma convention (4.5 = 3^2 / 2)."""
+    s = torch.log(torch.clamp(opacities, min=1e-12) / ALPHA_THRESH)
+    return torch.clamp(s, 0.0, 4.5)
+
+
+def binning_extents(
+    conics: torch.Tensor,  # [C, 3]
+    opacities: torch.Tensor,  # [C]
+    radii: torch.Tensor,  # [C] circle radius (0 = culled)
+) -> torch.Tensor:
+    """Per-axis half-widths [C, 2] of each Gaussian's contributing screen
+    support {alpha >= ALPHA_THRESH}, capped by the 3-sigma radius."""
+    a, b, c = conics[:, 0], conics[:, 1], conics[:, 2]
+    det_inv = torch.clamp(a * c - b * b, min=1e-12)
+    cov00 = torch.clamp(c / det_inv, min=0.0)
+    cov11 = torch.clamp(a / det_inv, min=0.0)
+    s_max = _s_max(opacities)
+    rx = torch.sqrt(2.0 * s_max * cov00)
+    ry = torch.sqrt(2.0 * s_max * cov11)
+    live = (radii > 0.0) & (opacities > ALPHA_THRESH)
+    zero = torch.zeros_like(rx)
+    rx = torch.where(live, torch.minimum(rx, radii), zero)
+    ry = torch.where(live, torch.minimum(ry, radii), zero)
+    return torch.stack([rx, ry], dim=1)
+
+
+def bin_gaussians(
+    means2d: torch.Tensor,  # [C, 2]
+    extents: torch.Tensor,  # [C, 2] per-axis half-widths, or [C] radii
+    depths: torch.Tensor,  # [C]
+    geom: TiledGeometry,
+    max_tiles_w: int,
+    max_tiles_h: int,
+    conics: torch.Tensor,  # [C, 3] for the exact tile test
+    opacities: torch.Tensor,  # [C]
+    ov_capacity: int | None = None,  # population-B slots (None: C//8)
+    small_budget: int = SMALL_BUDGET,  # population-A cells per gaussian
+    height: int | None = None,  # image rows: gaussians whose support starts
+    # at or below this row are not binned (the tile grid's padding rows)
+) -> Binning:
+    device = means2d.device
+    c = means2d.shape[0]
+    ts = geom.tile_size
+    tx_n, ty_n = geom.tiles_x, geom.tiles_y
+    num_tiles = geom.num_tiles
+    m = max_tiles_w * max_tiles_h
+    if c * m >= 2**31:
+        raise ValueError(f"{c} gaussians x {m} cells exceed int32 flat ids")
+
+    if extents.dim() == 1:
+        extents = torch.stack([extents, extents], dim=1)
+    valid = (extents[:, 0] > 0.0) & (extents[:, 1] > 0.0)
+    rx, ry = extents[:, 0], extents[:, 1]
+    mx, my = means2d[:, 0], means2d[:, 1]
+    if height is not None:
+        valid = valid & ((my - ry) < height)
+    inf = torch.full_like(depths, float("inf"))
+    order = torch.argsort(torch.where(valid, depths, inf), stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(c, device=device)
+
+    def tile_of(v, hi):
+        return torch.clamp(torch.floor(v / ts), 0, hi).to(torch.int32)
+
+    tx0, tx1 = tile_of(mx - rx, tx_n - 1), tile_of(mx + rx, tx_n - 1)
+    ty0, ty1 = tile_of(my - ry, ty_n - 1), tile_of(my + ry, ty_n - 1)
+
+    # flexible window: any w x h <= m; an oversized rect shrinks its larger
+    # side, re-centered on the Gaussian's tile
+    cx = torch.clamp(torch.floor(mx / ts).to(torch.int32), tx0, tx1)
+    cy = torch.clamp(torch.floor(my / ts).to(torch.int32), ty0, ty1)
+    w = torch.clamp(tx1 - tx0 + 1, max=m)
+    h = torch.clamp(ty1 - ty0 + 1, max=m)
+    over = w * h > m
+    shrink_w = over & (w >= h)
+    w = torch.where(shrink_w, torch.clamp(m // h, min=1), w)
+    h = torch.where(over & ~shrink_w, torch.clamp(m // w, min=1), h)
+    tx0 = torch.clamp(cx - (w - 1) // 2, tx0, tx1 - w + 1)
+    ty0 = torch.clamp(cy - (h - 1) // 2, ty0, ty1 - h + 1)
+    count = torch.where(valid, w * h, torch.zeros_like(w))
+
+    if ov_capacity is None:
+        ov_capacity = min(c, max(c // 8, 128))
+    b_small = max(1, min(small_budget, m))
+    flag = valid & (count > b_small)
+    num_overflow = flag.sum(dtype=torch.int32)
+    n_gt = torch.stack(
+        [(valid & (count > bb)).sum(dtype=torch.int32) for bb in BUDGET_CANDIDATES]
+    )
+    rank_bits = max(1, (c - 1).bit_length())
+    two_pop = m > b_small and ov_capacity > 0
+
+    flag_i = flag.to(torch.int32)
+    in_ov = flag & ((torch.cumsum(flag_i, 0) - flag_i) < ov_capacity)
+    arange_c = torch.arange(c, dtype=torch.int32, device=device)
+    fgeo = torch.stack(
+        [mx, my, conics[:, 0], conics[:, 1], conics[:, 2], _s_max(opacities)]
+    ).contiguous()
+    ints = [tx0, ty0, w, count, rank.to(torch.int32), arange_c]
+    kw = dict(
+        m=m, ts=ts, tiles_x=tx_n, num_tiles=num_tiles, rank_bits=rank_bits,
+        sentinel_flat=c * m,
+    )
+    livebase_a = valid & ~in_ov if two_pop else valid
+    igeo_a = torch.stack(ints + [livebase_a.to(torch.int32)])
+    keys_a, flats_a, cnt_small, cnt_full = binkeys_kernel.binkeys(
+        fgeo, igeo_a, n_keys=b_small if two_pop else m, **kw
+    )
+    if two_pop:
+        # population B: the overflow gaussians, compacted in index order
+        ov_id = torch.sort(torch.where(in_ov, arange_c, c)).values[:ov_capacity]
+        slot_valid = ov_id < c
+        safe_id = torch.clamp(ov_id, max=c - 1).to(torch.int64)
+        igeo_b = torch.stack(
+            [x[safe_id] for x in ints] + [slot_valid.to(torch.int32)]
+        )
+        keys_b, flats_b, _, _ = binkeys_kernel.binkeys(
+            fgeo[:, safe_id].contiguous(), igeo_b, n_keys=m, **kw
+        )
+        counts = torch.where(in_ov, cnt_full, cnt_small)
+        keys_dom = torch.cat([keys_a.reshape(-1), keys_b.reshape(-1)])
+        flats_dom = torch.cat([flats_a.reshape(-1), flats_b.reshape(-1)])
+    else:
+        counts = cnt_small
+        keys_dom, flats_dom = keys_a.reshape(-1), flats_a.reshape(-1)
+
+    # live keys are unique, dead entries identical: any sort order agrees
+    sorted_keys, perm = torch.sort(keys_dom)
+    sorted_flat = flats_dom[perm]
+    sorted_tile = (sorted_keys >> rank_bits).to(torch.int32)
+    sorted_orig = torch.clamp(torch.div(sorted_flat, m, rounding_mode="floor"), max=c - 1)
+    tile_offsets = torch.searchsorted(
+        sorted_tile,
+        torch.arange(num_tiles + 1, dtype=torch.int32, device=device),
+        side="left", out_int32=True,
+    )
+    return Binning(
+        order=order,
+        isect_orig=sorted_orig,
+        isect_flat=sorted_flat,
+        isect_tile=sorted_tile,
+        tile_offsets=tile_offsets,
+        num_isects=tile_offsets[num_tiles],
+        counts=counts,
+        num_overflow=num_overflow,
+        n_gt=n_gt,
+    )
+
+
+def pack_features(
+    g9: torch.Tensor,  # [C, 9] = [means2d | conics | colors | opacity]
+    binning: Binning,
+    geom: TiledGeometry,
+) -> torch.Tensor:
+    """Per-intersection feature rows [I, 16] with the quadratic form as a
+    polynomial in tile-local pixel coordinates (columns 0-5, against the
+    basis columns px^2, py^2, px*py, px, py, 1) and -log(opacity) in
+    column 6 (basis column 6 is 1), so s2 = sigma - log(opacity)."""
+    tiles = torch.clamp(binning.isect_tile, max=geom.num_tiles - 1)
+    ox = (tiles % geom.tiles_x).to(torch.float32) * geom.tile_size
+    oy = torch.div(tiles, geom.tiles_x, rounding_mode="floor").to(torch.float32) * geom.tile_size
+
+    gi = g9[binning.isect_orig]  # [I, 9]
+    invalid = binning.isect_tile >= geom.num_tiles
+    opa = torch.where(invalid, torch.zeros_like(gi[:, 8]), gi[:, 8])
+
+    mx = gi[:, 0] - ox  # tile-local mean
+    my = gi[:, 1] - oy
+    a, b, cc = gi[:, 2], gi[:, 3], gi[:, 4]
+    nlopac = -torch.log(torch.clamp(opa, min=1e-12))
+    return torch.stack(
+        [
+            0.5 * a,  # 0: * px^2
+            0.5 * cc,  # 1: * py^2
+            b,  # 2: * px*py
+            -(a * mx + b * my),  # 3: * px
+            -(cc * my + b * mx),  # 4: * py
+            0.5 * a * mx * mx + 0.5 * cc * my * my + b * mx * my,  # 5: * 1
+            nlopac,  # 6: -log(opacity) (basis column 6 = 1)
+            mx,  # 7: payload (basis column 7 = 0)
+            gi[:, 5],  # 8-10: rgb
+            gi[:, 6],
+            gi[:, 7],
+            a,  # 11-13: conic
+            b,
+            cc,
+            my,  # 14
+            torch.zeros_like(mx),  # 15
+        ],
+        dim=1,
+    )
+
+
+def tile_pixel_basis(geom: TiledGeometry, device=None) -> torch.Tensor:
+    """[P_tile, 8] polynomial basis over tile-local pixel centers, row-major:
+    columns (px^2, py^2, px*py, px, py, 1, 1, 0)."""
+    ts = geom.tile_size
+    c = torch.arange(ts, dtype=torch.float32, device=device) + 0.5
+    pyg, pxg = torch.meshgrid(c, c, indexing="ij")
+    px, py = pxg.reshape(-1), pyg.reshape(-1)
+    ones, zeros = torch.ones_like(px), torch.zeros_like(px)
+    return torch.stack(
+        [px * px, py * py, px * py, px, py, ones, ones, zeros], dim=1
+    ).contiguous()
+
+
+def tiles_to_image(tile_data: torch.Tensor, geom: TiledGeometry, height: int, width: int):
+    """[T, ts*ts, ...] -> [H, W, ...] (crop padding)."""
+    ts = geom.tile_size
+    x = tile_data.reshape((geom.tiles_y, geom.tiles_x, ts, ts) + tuple(tile_data.shape[2:]))
+    x = x.transpose(1, 2)
+    x = x.reshape((geom.tiles_y * ts, geom.tiles_x * ts) + tuple(tile_data.shape[2:]))
+    return x[:height, :width]
+
+
+def image_to_tiles(img: torch.Tensor, geom: TiledGeometry, height: int, width: int):
+    """[H, W, ...] -> [T, ts*ts, ...] (zero-pad to the tile grid)."""
+    ts = geom.tile_size
+    rest = tuple(img.shape[2:])
+    x = img.new_zeros((geom.tiles_y * ts, geom.tiles_x * ts) + rest)
+    x[:height, :width] = img
+    x = x.reshape((geom.tiles_y, ts, geom.tiles_x, ts) + rest).transpose(1, 2)
+    return x.reshape((geom.num_tiles, ts * ts) + rest)
+
+
+def _ov_capacity(c: int, ov_frac: float) -> int:
+    cap = max(int(c * ov_frac), 128)
+    cap = -(-cap // 256) * 256
+    return min(c, cap)
+
+
+def _prepare(
+    means2d, conics, colors, opacities, radii, depths,
+    height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
+    ov_frac: float = 0.125, small_budget: int = SMALL_BUDGET,
+):
+    geom = image_geometry(height, width, tile_size)
+    extents = binning_extents(conics, opacities, radii)
+    binning = bin_gaussians(
+        means2d, extents, depths, geom, max_tiles_w, max_tiles_h,
+        conics=conics, opacities=opacities,
+        ov_capacity=_ov_capacity(means2d.shape[0], ov_frac),
+        small_budget=small_budget, height=height,
+    )
+    # the sort domain can be smaller than a large requested cap
+    isect_cap = min(isect_cap, binning.isect_flat.shape[0])
+    sliced = binning._replace(
+        isect_orig=binning.isect_orig[:isect_cap],
+        isect_flat=binning.isect_flat[:isect_cap],
+        isect_tile=binning.isect_tile[:isect_cap],
+        tile_offsets=torch.clamp(binning.tile_offsets, max=isect_cap),
+    )
+    g9 = torch.cat([means2d, conics, colors, opacities[:, None]], dim=1)
+    return geom, sliced, pack_features(g9, sliced, geom)
+
+
+def _tiled_impl(
+    means2d, conics, colors, opacities, radii, depths,
+    height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
+    ov_frac=0.125, small_budget=SMALL_BUDGET,
+):
+    geom, binning, feats = _prepare(
+        means2d, conics, colors, opacities, radii, depths,
+        height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
+        ov_frac=ov_frac, small_budget=small_budget,
+    )
+    basis = tile_pixel_basis(geom, means2d.device)
+    rgb_t, tfin_t, _last = tile_raster.tiled_forward(feats, binning.tile_offsets, basis)
+    img = tiles_to_image(rgb_t, geom, height, width)
+    final_t = tiles_to_image(tfin_t, geom, height, width)
+    return img, final_t, binning
+
+
+def rasterize_tiled(
+    means2d, conics, colors, opacities, depths, background,
+    height, width, *, radii,
+    tile_size: int = DEFAULT_TILE,
+    max_tiles_w: int = DEFAULT_MAX_TILES_W,
+    max_tiles_h: int = DEFAULT_MAX_TILES_H,
+    isect_mult: float = 3,
+    return_isects: bool = False,
+    ov_frac: float = 0.125,
+    small_budget: int = SMALL_BUDGET,
+):
+    """Tiled rasterization with the unified rasterizer signature (see
+    ``models/render.py``). Returns (image [H,W,3], alpha [H,W]), plus the
+    binned intersection count (a device scalar) when ``return_isects``;
+    intersections beyond ``isect_capacity(C, isect_mult)`` are dropped."""
+    if tile_size * tile_size > tile_raster.MAX_TILE_PIXELS:
+        raise ValueError(f"tile_size {tile_size} > 32: one thread per tile pixel")
+    isect_cap = isect_capacity(means2d.shape[0], isect_mult)
+    # zero-opacity gaussians (dead capacity slots, culls) are never binned
+    radii = torch.where(opacities > 0.0, radii, torch.zeros_like(radii))
+    img, final_t, binning = _tiled_impl(
+        means2d, conics, colors, opacities, radii, depths,
+        height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
+        ov_frac, small_budget,
+    )
+    img = img + final_t[..., None] * background[None, None, :]
+    if return_isects:
+        return img, 1.0 - final_t, binning.num_isects
+    return img, 1.0 - final_t
+
+
+def make_isect_counter(
+    tile_size: int = DEFAULT_TILE,
+    max_tiles_w: int = DEFAULT_MAX_TILES_W,
+    max_tiles_h: int = DEFAULT_MAX_TILES_H,
+    ov_frac: float = 0.125,
+    small_budget: int = SMALL_BUDGET,
+):
+    """(params, alive, w2c, K, *, height, width) -> i32 [2 +
+    len(BUDGET_CANDIDATES)]: [num_isects, num_overflow, *n_gt], the
+    binning statistics the capacity autotune reads."""
+
+    def count(params, alive, w2c, K, *, height, width):
+        scales = torch.exp(params.log_scales)
+        opac = torch.sigmoid(params.logit_opacities) * alive.to(torch.float32)
+        intr = CameraIntrinsics.from_K(K, width, height)
+        proj = project_gaussians(params.means, params.quats, scales, w2c, intr)
+        radii = torch.where(opac > 0.0, proj.radii, torch.zeros_like(proj.radii))
+        geom = image_geometry(height, width, tile_size)
+        extents = binning_extents(proj.conics, opac, radii)
+        binning = bin_gaussians(
+            proj.means2d, extents, proj.depths, geom, max_tiles_w, max_tiles_h,
+            conics=proj.conics, opacities=opac,
+            ov_capacity=_ov_capacity(params.means.shape[0], ov_frac),
+            small_budget=small_budget, height=height,
+        )
+        return torch.cat(
+            [torch.stack([binning.num_isects, binning.num_overflow]), binning.n_gt]
+        )
+
+    return count
+
+
+def make_tiled_render_fn(
+    tile_size: int = DEFAULT_TILE,
+    max_tiles_w: int = DEFAULT_MAX_TILES_W,
+    max_tiles_h: int = DEFAULT_MAX_TILES_H,
+    isect_mult: float = 3,
+    ov_frac: float = 0.125,
+    small_budget: int = SMALL_BUDGET,
+):
+    """Render function (``models/render.py`` signature) over the tiled
+    rasterizer."""
+    from ..models.render import render as _render
+
+    rasterizer = functools.partial(
+        rasterize_tiled,
+        tile_size=tile_size,
+        max_tiles_w=max_tiles_w,
+        max_tiles_h=max_tiles_h,
+        isect_mult=isect_mult,
+        return_isects=True,
+        ov_frac=ov_frac,
+        small_budget=small_budget,
+    )
+    return functools.partial(_render, rasterizer=rasterizer)

@@ -1,0 +1,99 @@
+"""The port stands alone: it imports nothing of JAX, Flax or the JAX package,
+and its entry points refuse to run on the CPU unless asked to."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import easy_gaussian_splatting_torch as egt
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "easy_gaussian_splatting_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import easy_gaussian_splatting_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "easy_gaussian_splatting_tpu") and sys.modules[m] is not None]
+print(len(names), bad)
+"""
+
+
+def test_port_imports_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(maxsplit=1)
+    assert int(n) >= 20 and bad.strip() == "[]"
+
+
+def test_entry_points_refuse_cpu_unless_asked(monkeypatch, tmp_path):
+    from easy_gaussian_splatting_torch.launch_viewer import build_viewer
+    from easy_gaussian_splatting_torch.models.gaussians import (
+        init_gaussian_state,
+        params_from_numpy,
+    )
+    from easy_gaussian_splatting_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    xyz = np.random.default_rng(0).uniform(size=(10, 3)).astype(np.float32)
+    rgb = np.zeros((10, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        egt.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_gaussian_state(xyz, rgb, 0)
+    state = init_gaussian_state(xyz, rgb, 0, device="cpu")
+    path = tmp_path / "checkpoints" / "iterations_1.npz"
+    save_checkpoint(path, state, 0, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({k: np.zeros((1, 3)) for k in ("means",)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_viewer(tmp_path)
+    assert egt.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main([]) != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory that holds only the script, it exits non-zero and
+    prints no result."""
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

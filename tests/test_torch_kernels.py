@@ -1,0 +1,137 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the
+card. Every test needs an NVIDIA Hopper card and ``nvcc``; without a card
+each skips with the reason. On the card (where JAX, which the suite's
+conftest imports, need not be installed):
+
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from easy_gaussian_splatting_torch.ops import rasterize_tiled as trt
+from easy_gaussian_splatting_torch.ops.kernels import _build
+from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
+    return torch.device("cuda")
+
+
+def _scene(rng, n, height, width, device):
+    """Screen-space Gaussians of mixed size and opacity."""
+    m2d = rng.uniform([-8, -8], [width + 8, height + 8], size=(n, 2))
+    L = rng.normal(size=(n, 2, 2)) * rng.uniform(0.3, 4.0, size=(n, 1, 1))
+    cov = L @ np.swapaxes(L, 1, 2) + np.eye(2)[None] * 0.3
+    det = cov[:, 0, 0] * cov[:, 1, 1] - cov[:, 0, 1] ** 2
+    con = np.stack([cov[:, 1, 1] / det, -cov[:, 0, 1] / det, cov[:, 0, 0] / det], -1)
+    b = 0.5 * (cov[:, 0, 0] + cov[:, 1, 1])
+    rad = np.ceil(3.0 * np.sqrt(b + np.sqrt(np.maximum(b * b - det, 0.01))))
+    col = rng.uniform(size=(n, 3))
+    opa = rng.uniform(0.05, 0.99, size=n)
+    dep = rng.uniform(1.0, 10.0, size=n)
+    return [torch.as_tensor(x, dtype=torch.float32, device=device)
+            for x in (m2d, con, col, opa, dep, rad)]
+
+
+def test_build_all(cuda):
+    secs = _build.build_all()
+    assert set(secs) == {"binkeys", "tile_forward"}
+
+
+@pytest.mark.parametrize("small_budget", [2, 4, 9])
+def test_binkeys_matches_plain(cuda, rng, small_budget):
+    """Both populations of a real binning call: keys, flats and counts are
+    integers and must be equal (the library is built without FMA
+    contraction, so the exact tile test rounds like the plain version)."""
+    h, w = 360, 480
+    m2d, con, col, opa, dep, rad = _scene(rng, 20000, h, w, cuda)
+    geom = trt.image_geometry(h, w, 16)
+    ext = trt.binning_extents(con, opa, rad)
+    calls = []
+    orig = bk.binkeys
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    bk.binkeys = rec
+    try:
+        trt.bin_gaussians(m2d, ext, dep, geom, 4, 4, con, opa, ov_capacity=2048,
+                          small_budget=small_budget, height=h)
+    finally:
+        bk.binkeys = orig
+    assert len(calls) == 2
+    before = bk.launches
+    for a, k in calls:
+        for got, want in zip(bk.binkeys(*a, **k), bk.binkeys_plain(*a, **k)):
+            assert torch.equal(got, want)
+    assert bk.launches == before + 2
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_tiled_forward_matches_plain(cuda, rng, tile_size):
+    """The sequential per-pixel walk against the plain version's cumulative
+    products: 1e-4 on at least 99.99% of pixels (rounding can flip a stop
+    decision of a pixel whose transmittance lands on 1e-4)."""
+    h, w = 256, 320
+    m2d, con, col, opa, dep, rad = _scene(rng, 30000, h, w, cuda)
+    geom, binning, feats = trt._prepare(
+        m2d, con, col, opa, rad, dep, h, w, tile_size, 4, 4, isect_cap=10**7,
+    )
+    basis = trt.tile_pixel_basis(geom, cuda)
+    k_rgb, k_t, k_last = tr.tiled_forward(feats, binning.tile_offsets, basis)
+    p_rgb, p_t, p_last = tr.tiled_forward_plain(feats, binning.tile_offsets, basis)
+    ok = ((k_rgb - p_rgb).abs().amax(-1) <= 1e-4) & ((k_t - p_t).abs() <= 1e-4)
+    assert ok.float().mean().item() >= 0.9999
+    assert ((k_last == p_last) | ~ok).float().mean().item() >= 0.999
+    assert (k_t < 1e-3).any()  # some pixels saturate and stop early
+
+
+def test_rasterize_tiled_kernels_match_plain(cuda, rng):
+    """The whole tiled rasterizer on the card with the kernels, and with
+    both wrappers swapped for their plain versions."""
+    h, w = 200, 264
+    scene = _scene(rng, 15000, h, w, cuda)
+    m2d, con, col, opa, dep, rad = scene
+    bg = torch.tensor([0.2, 0.3, 0.4], device=cuda)
+    kw = dict(radii=rad, tile_size=32, isect_mult=6, return_isects=True)
+    img, alpha, n = trt.rasterize_tiled(m2d, con, col, opa, dep, bg, h, w, **kw)
+    orig = (bk.binkeys, tr.tiled_forward)
+    bk.binkeys, tr.tiled_forward = bk.binkeys_plain, tr.tiled_forward_plain
+    try:
+        img_p, alpha_p, n_p = trt.rasterize_tiled(m2d, con, col, opa, dep, bg, h, w, **kw)
+    finally:
+        bk.binkeys, tr.tiled_forward = orig
+    assert int(n) == int(n_p) > 0
+    ok = (img - img_p).abs().amax(-1) <= 1e-4
+    assert ok.float().mean().item() >= 0.9999
+
+
+def test_wrappers_check_their_inputs(cuda):
+    fgeo = torch.zeros((6, 8), device=cuda)
+    igeo = torch.zeros((7, 8), dtype=torch.int32, device=cuda)
+    kw = dict(n_keys=4, m=16, ts=16, tiles_x=4, num_tiles=16, rank_bits=3, sentinel_flat=128)
+    with pytest.raises(ValueError):
+        bk.binkeys(fgeo.double(), igeo, **kw)
+    with pytest.raises(ValueError):
+        bk.binkeys(fgeo[:, ::2], igeo[:, ::2], **kw)
+    basis = trt.tile_pixel_basis(trt.image_geometry(64, 64, 32), cuda)
+    offs = torch.zeros(5, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tr.tiled_forward(torch.zeros((4, 15), device=cuda), offs, basis)
+    big = trt.tile_pixel_basis(trt.image_geometry(64, 64, 64), cuda)
+    with pytest.raises(ValueError):
+        tr.tiled_forward(torch.zeros((4, 16), device=cuda), offs, big)
