@@ -24,7 +24,32 @@ its offline viewer, the main path of this part of the port:
    launch counts must rise during the requests;
 6. numbers: request latency, each kernel's and plain version's time
    (CUDA events), its lower bound on this card, launches per frame and
-   peak device memory, then one JSON line of kernels.
+   peak device memory;
+
+and then through its trainer, the main path of this part of the port:
+
+7. training data: the same 1M-Gaussian scene initialised for training
+   (``init_gaussian_state``, SH 3) and four 800x800 ring cameras whose
+   targets the port's forward renders from a "ground-truth" copy with
+   other colours, opacities and view-dependent SH;
+8. kernel checks at the inputs of one real train step: ``tiled_backward``
+   and ``segsum_band`` against their plain versions, and the whole step's
+   parameter gradients with all four kernels against the same step with
+   the four plain versions;
+9. train: the port's ``train()`` for 40 steps on cuda with
+   ``configs/nerf_synthetic.yaml``'s values and a compressed schedule
+   (printed), so densify runs at steps 20, 30, 40 and the opacity reset at
+   30; every kernel's launches rise every step, no step is truncated, the
+   loss falls before the first event and the checkpoint reloads with its
+   Adam state;
+10. numbers: step time, both new kernels' and plain versions' times and
+   bounds, peak device memory, a profile of three steps, then one JSON
+   line of the four kernels. Each main path's counts are zeroed just
+   before it: ``launches`` counts the ``train()`` run of phase 9 and
+   ``launches_served`` the viewer's build and requests of phase 5. ``ms``,
+   ``plain_ms``, ``bound_ms`` and ``max_abs_err`` come from the served
+   800x800 frame for binkeys and tiled_forward, and from the first train
+   step for tiled_backward and segsum_band.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; any failed
 phase exits non-zero before it.
@@ -60,11 +85,28 @@ PEAK_F32_PER_S = 67e12
 # intersection) pair reached (7-term polynomial, exp, eligibility tests)
 BINKEYS_OPS_PER_CELL = 75
 FORWARD_OPS_PER_PAIR = 20
+# tiled_backward: every (pixel, intersection) pair the walk reaches replays
+# the eligibility test (~20, as the forward); each composited pair adds
+# ~39 operations of gradient math and 11 adds to the per-tile sums
+BACKWARD_OPS_PER_WALKED = 20
+BACKWARD_OPS_PER_COMPOSITED = 50
 
 TOL = 1e-4  # rgb / final-T agreement of kernel and plain forward
 MIN_AGREE = 0.9999  # share of pixels that must agree within TOL
 REQUEST_REPEATS = 5
 SIZES = {"dataset": (800, 800), "orbit_720p": (1280, 720), "rung_180p": (320, 180)}
+
+BWD_TOL = 1e-4  # tiled_backward vs plain, relative to each column's max
+SEG_RTOL = 1e-5  # segsum_band vs plain, relative to the group's |sum|
+STEP_GRAD_RTOL = 1e-3  # whole-step gradients, relative L2 per parameter
+# configs/nerf_synthetic.yaml with a schedule compressed so that every
+# event happens within the run
+TRAIN_SCHEDULE = dict(
+    total_iterations=40, sh_degree_interval=0, refine_start=10, refine_every=10,
+    reset_opacities_every=20, save_model_iterations=[40], save_optimizer_state=True,
+    data_device_cache=False, log_every=1, dataloader_workers=2,
+)
+TIMED_STEPS = range(14, 19)  # steps 15-19: the five before the first event
 
 
 class SmokeFailure(Exception):
@@ -303,18 +345,18 @@ def forward_pairs(feats, offsets, basis, max_elems: int = 1 << 26) -> int:
     return total
 
 
-def profile_frames(render, cam, frames: int = 3, top: int = 14) -> None:
-    """Where a served frame's time goes: ``torch.profiler`` device time by
-    kernel over a few frames, and the device's busy share of the wall."""
+def profile_device(fn, reps: int, what: str, tag: str, top: int = 14) -> None:
+    """Where the time of ``reps`` calls of ``fn`` goes: ``torch.profiler``
+    device time by kernel, and the device's busy share of the wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    render(cam)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(frames):
-            render(cam)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
@@ -327,17 +369,369 @@ def profile_frames(render, cam, frames: int = 3, top: int = 14) -> None:
     rows = [r for r in rows if r[0] > 0]
     busy = sum(r[0] for r in rows)
     if not rows:
-        log("[6] profile: no device time recorded")
+        log(f"[{tag}] profile: no device time recorded")
         return
-    log(f"[6] profile of {frames} 800x800 frames: wall {wall_ms / frames:.2f} ms/frame, "
-        f"device busy {busy / frames:.2f} ms/frame (idle share {1 - busy / wall_ms:.3f})")
+    log(f"[{tag}] profile of {reps} {what}s: wall {wall_ms / reps:.2f} ms/{what}, "
+        f"device busy {busy / reps:.2f} ms/{what} (idle share {1 - busy / wall_ms:.3f})")
     for ms, n, key in sorted(rows, reverse=True)[:top]:
-        log(f"[6]   {ms / frames:8.3f} ms/frame  {n / frames:6.1f} calls/frame  {key[:90]}")
+        log(f"[{tag}]   {ms / reps:8.3f} ms/{what}  {n / reps:6.1f} calls/{what}  {key[:90]}")
 
 
 def bound_ms(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------------------------------------------ phase 7
+class RingScene:
+    """The JAX ``Scene``'s interface over in-memory frames, the train
+    indexes tiled over the whole run as ``Scene`` tiles them."""
+
+    def __init__(self, xyzs, rgbs, frames, total):
+        import types
+
+        self.pc = types.SimpleNamespace(xyzs=xyzs, rgbs=rgbs, nbr_points=xyzs.shape[0])
+        self.frames, self.total = frames, total
+
+    def nbr_data(self, split):
+        return self.total if split == "train" else 0
+
+    def get_data(self, split, index):
+        return dict(self.frames[index % len(self.frames)])
+
+
+def ring_views(n: int = 4, radius: float = 4.0, focal: float = 1111.0, size: int = 800):
+    """(w2c, K) of ``n`` cameras on a ring looking at the origin, as the
+    run directory's cameras (phase 3)."""
+    views = []
+    for k in range(n):
+        th = 2.0 * math.pi * k / n
+        pos = radius * np.array([-math.sin(th), 0.0, -math.cos(th)])
+        rot = _look_at(pos)
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[:3, :3] = rot.T
+        w2c[:3, 3] = -rot.T @ pos
+        K = np.array([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]], np.float32)
+        views.append((w2c, K))
+    return views
+
+
+def training_data(n: int, seed: int, cfg, device):
+    """The training init state, and the ring frames rendered by the port's
+    forward from a ground-truth copy with other colours and opacities."""
+    import dataclasses
+
+    import torch
+
+    from easy_gaussian_splatting_torch.models.gaussians import init_gaussian_state
+    from easy_gaussian_splatting_torch.models.render import CameraView
+    from easy_gaussian_splatting_torch.ops.rasterize_tiled import isect_capacity
+    from easy_gaussian_splatting_torch.ops.sh import rgb_to_sh0
+    from easy_gaussian_splatting_torch.training.trainer import get_render_fn, tune_inference_cfg
+
+    rng = np.random.default_rng(seed)
+    xyzs = rng.uniform(-1.5, 1.5, size=(n, 3)).astype(np.float32)
+    rgbs = rng.integers(0, 256, size=(n, 3)).astype(np.uint8)
+    state = init_gaussian_state(xyzs, rgbs, sh_degree=3, device=device)
+    gt = state.params.map(torch.clone)
+    gt_rgb = rng.uniform(size=(n, 3)).astype(np.float32)
+    opac = rng.uniform(0.05, 0.95, size=n)
+    gt.sh_0[:n] = torch.as_tensor(rgb_to_sh0(gt_rgb)[:, None, :], device=device)
+    gt.sh_rest[:n] = torch.as_tensor(rng.normal(0.0, 0.1, size=(n, 15, 3)).astype(np.float32), device=device)
+    gt.logit_opacities[:n] = torch.as_tensor(np.log(opac / (1.0 - opac)).astype(np.float32), device=device)
+    gt_state = dataclasses.replace(state, params=gt)
+    bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=device)
+    frames = []
+    with torch.no_grad():
+        for w2c, K in ring_views():
+            # capacity from the inference autotune; a frame that still
+            # overflows renders again with 1.5x its count, as the viewer does
+            vcfg = tune_inference_cfg(dataclasses.replace(cfg), gt_state, w2c, K, 800, 800)
+            cam = CameraView(torch.as_tensor(w2c, device=device), torch.as_tensor(K, device=device), 800, 800)
+            out = get_render_fn(vcfg)(gt, state.alive, cam, 3, bg)
+            n_isects = int(out.num_isects)
+            if n_isects > isect_capacity(state.capacity, vcfg.isect_mult):
+                vcfg.isect_mult = n_isects * 1.5 / state.capacity
+                out = get_render_fn(vcfg)(gt, state.alive, cam, 3, bg)
+            check(int(out.num_isects) <= isect_capacity(state.capacity, vcfg.isect_mult),
+                  "a ground-truth frame was truncated")
+            frames.append(dict(K=K, height=800, width=800, w2c=w2c, image=out.image.cpu().numpy(),
+                               mask=np.zeros((800, 800), np.float32)))
+    return xyzs, rgbs, state, frames
+
+
+# ------------------------------------------------------------------ phase 8
+def near_eligibility_edge(feats, offsets, basis, last, row: int) -> bool:
+    """Replay intersection ``row`` in f64 over the pixels of its tile that
+    walk to it: does any eligibility decision lie within f32 rounding of
+    its edge (see ``near_decision``)?"""
+    import torch
+
+    t = int(torch.searchsorted(offsets, torch.tensor([row], dtype=offsets.dtype,
+                                                     device=offsets.device), right=True)) - 1
+    f = feats[row].double()
+    terms = basis[:, :7].double() * f[:7]
+    s2 = terms.sum(dim=1)
+    nlo = float(f[6])
+    scale = terms.abs().sum(dim=1) + abs(nlo) + 1.0
+    expo = torch.clamp(s2, min=nlo)
+    d = torch.minimum((s2 - (nlo - 1e-3)).abs(), (expo - math.log(255.0)).abs()) / scale
+    return bool(((d < 1e-5) & (last[t] >= row)).any())
+
+
+def check_backward(call):
+    """Kernel against plain version on the recorded backward call: every
+    column within BWD_TOL of its largest magnitude; rows outside it are
+    counted and each must replay an eligibility decision at its rounding
+    edge. Returns (max abs difference, plain ms of the one plain call)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+
+    args, _ = call
+    got = tr.tiled_backward(*args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = tr.tiled_backward_plain(*args)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    n_live = tr.NUM_LIVE_GRADS
+    scale = want[:, :n_live].abs().amax(dim=0)
+    err = (got - want).abs()
+    rel = err[:, :n_live].amax(dim=0) / scale.clamp(min=1e-30)
+    bad = (err[:, :n_live] > BWD_TOL * scale).any(dim=1).nonzero().flatten().tolist()
+    log(f"[8] tiled_backward: {got.shape[0]} rows, worst column error / column max "
+        f"{float(rel.max()):.2e} (per column: {', '.join(f'{float(x):.1e}' for x in rel)}); "
+        f"{len(bad)} rows outside {BWD_TOL} of their column's max")
+    feats, offsets, basis = args[0], args[1], args[2]
+    last = args[6]
+    explained = sum(1 for r in bad[:64] if near_eligibility_edge(feats, offsets, basis, last, r))
+    log(f"[8] tiled_backward: {explained} of {min(len(bad), 64)} replayed rows have an "
+        "eligibility decision within rounding of its edge")
+    check(explained == min(len(bad), 64) and len(bad) <= 64,
+          "tiled_backward: unexplained differences from the plain version")
+    check(bool((got[:, n_live:] == 0).all()), "tiled_backward: padding columns not zero")
+    return float(err.max()), plain_ms
+
+
+def check_segsum(call, capacity: int) -> float:
+    """Kernel against plain version on the recorded call, at the rows the
+    consumer reads (each live Gaussian's first row): within SEG_RTOL of the
+    group's sum of magnitudes (the two versions add in another order)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+
+    (rows, g), _ = call
+    got = seg.segsum_band(rows, g)
+    want = seg.segsum_band_plain(rows, g)
+    mag = seg.segsum_band_plain(rows.abs(), g)
+    torch.cuda.synchronize()
+    first = torch.ones_like(g, dtype=torch.bool)
+    first[1:] = g[1:] != g[:-1]
+    read = first & (g < capacity)
+    err = (got - want).abs()[read]
+    ok = err <= SEG_RTOL * mag[read]
+    log(f"[8] segsum_band: {rows.shape[0]} rows, {int(read.sum())} group starts read; "
+        f"{int((~ok).sum())} values outside {SEG_RTOL} of the group's |sum|, max |diff| "
+        f"{float(err.max()):.3e}")
+    check(bool(ok.all()), "segsum_band disagrees with the plain version")
+    return float(err.max())
+
+
+def plain_swaps():
+    """All four kernel wrappers replaced by their plain versions."""
+    from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+    from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(swapped(bk, "binkeys", bk.binkeys_plain))
+    stack.enter_context(swapped(tr, "tiled_forward", tr.tiled_forward_plain))
+    stack.enter_context(swapped(tr, "tiled_backward", tr.tiled_backward_plain))
+    stack.enter_context(swapped(seg, "segsum_band", seg.segsum_band_plain))
+    return stack
+
+
+def check_step_gradients(got, want) -> None:
+    """Each parameter's gradient (and absgrad) from the kernels against the
+    plain versions': relative L2 error at most STEP_GRAD_RTOL."""
+    from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES
+
+    (g_k, abs_k, ld_k, _), (g_p, abs_p, ld_p, _) = got, want
+    pairs = [(n, getattr(g_k, n), getattr(g_p, n)) for n in PARAM_NAMES] + [("absgrad", abs_k, abs_p)]
+    errs = {}
+    for name, a, b in pairs:
+        errs[name] = float((a - b).norm() / b.norm().clamp(min=1e-30))
+    log("[8] whole step, kernels vs plain versions: loss " + f"{float(ld_k['total']):.6f} vs "
+        f"{float(ld_p['total']):.6f}; relative L2 gradient error "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    check(all(v <= STEP_GRAD_RTOL for v in errs.values()),
+          "whole-step gradients of the kernels disagree with the plain versions'")
+
+
+# ------------------------------------------------------------------ phase 9
+def counts():
+    from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+    from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+
+    return {"binkeys": bk.launches, "tiled_forward": tr.launches,
+            "tiled_backward": tr.backward_launches, "segsum_band": seg.launches}
+
+
+def zero_counts() -> None:
+    from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+    from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+
+    bk.launches = tr.launches = tr.backward_launches = seg.launches = 0
+
+
+PER_STEP = {"binkeys": 2, "tiled_forward": 1, "tiled_backward": 1, "segsum_band": 1}
+
+
+def train_recorded(cfg, scene, device):
+    """The port's ``train()`` with each step timed (host clock between two
+    synchronizes), its launches, loss, intersections and capacity
+    recorded, and the densify and reset events counted."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.rasterize_tiled import isect_capacity
+    from easy_gaussian_splatting_torch.training import trainer as ttrainer
+
+    rec = {"steps": [], "densify": 0, "reset": 0}
+    make_orig = ttrainer.make_train_step
+    densify_orig = ttrainer.run_densify_with_growth
+    reset_orig = ttrainer.reset_opacities
+
+    def make(cfg_, render_fn):
+        step = make_orig(cfg_, render_fn)
+        mult = cfg_.isect_mult
+
+        def run(model, adam, *a, **k):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(model, adam, *a, **k)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = counts()
+            ld = out[2]
+            rec["steps"].append(dict(
+                ms=ms, launches={n: after[n] - before[n] for n in after},
+                loss=float(ld["total"]), isects=int(ld["isects"]),
+                cap=isect_capacity(model.capacity, mult), capacity=model.capacity,
+            ))
+            return out
+
+        return run
+
+    def densify(*a, **k):
+        rec["densify"] += 1
+        return densify_orig(*a, **k)
+
+    def reset(*a, **k):
+        rec["reset"] += 1
+        return reset_orig(*a, **k)
+
+    with swapped(ttrainer, "make_train_step", make), \
+            swapped(ttrainer, "run_densify_with_growth", densify), \
+            swapped(ttrainer, "reset_opacities", reset):
+        loop = ttrainer.train(cfg, scene=scene, device=device)
+    return loop, rec
+
+
+def check_training(loop, rec, cfg, device) -> None:
+    from easy_gaussian_splatting_torch.utils.checkpoint import load_checkpoint
+
+    steps = rec["steps"]
+    check(len(steps) == cfg.total_iterations == loop.step, f"trained {len(steps)} steps")
+    short = [i + 1 for i, s in enumerate(steps)
+             if any(s["launches"][n] < PER_STEP[n] for n in PER_STEP)]
+    check(not short, f"a kernel was launched fewer times than its per-step count at steps {short}")
+    truncated = [i + 1 for i, s in enumerate(steps) if s["isects"] > s["cap"]]
+    check(not truncated, f"truncated steps: {truncated}")
+    check(rec["densify"] >= 1 and rec["reset"] >= 1,
+          f"{rec['densify']} densify events and {rec['reset']} opacity resets ran")
+    losses = [s["loss"] for s in steps]
+    early, later = float(np.mean(losses[:5])), float(np.mean(losses[5:10]))
+    log(f"[9] loss: mean of steps 1-5 {early:.5f}, of steps 6-10 {later:.5f}; per step "
+        + " ".join(f"{x:.4f}" for x in losses))
+    check(later < early, "the loss did not fall before the first event")
+    path = Path(cfg.output) / "checkpoints" / f"iterations_{cfg.total_iterations}.npz"
+    state, sh, step, adam = load_checkpoint(path, device)
+    want_steps = cfg.total_iterations - rec["densify"]  # densify steps skip Adam
+    check(adam is not None and step == cfg.total_iterations and sh == 3,
+          "the checkpoint lacks its optimizer state or step")
+    check(all(int(v) == want_steps for v in adam.steps.values()),
+          f"checkpoint Adam steps {dict((k, int(v)) for k, v in adam.steps.items())}, want {want_steps}")
+    check(adam.mu.means.shape == state.params.means.shape and bool(adam.nu.sh_rest.abs().sum() > 0),
+          "checkpoint Adam moments malformed")
+    log(f"[9] checkpoint {path.name}: step {step}, {state.num_alive()} gaussians, Adam moments "
+        f"and steps ({want_steps} per group) reloaded")
+
+
+# ----------------------------------------------------------------- phase 10
+def backward_pairs(feats, offsets, basis, last):
+    """(walked, composited) (pixel, intersection) pairs of the backward on
+    this data: pairs at or before the pixel's last contributor, and those
+    of them the eligibility test accepts."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+    from easy_gaussian_splatting_torch.ops.rasterize_ref import ALPHA_CLAMP, ALPHA_THRESH
+
+    offs = offsets.long()
+    walked = composited = 0
+    for t0, t1, longest in tr._tile_batches((offs[1:] - offs[:-1]).tolist(), basis.shape[0], 1 << 24):
+        if longest == 0:
+            continue
+        lane = torch.arange(longest, device=feats.device)
+        starts = offs[t0:t1, None]
+        in_range = lane[None, :] < (offs[t0 + 1 : t1 + 1, None] - starts)
+        gpos = starts + lane[None, :]
+        f = feats[torch.where(in_range, gpos, torch.zeros_like(gpos))]
+        s2 = tr._sigma2(f, basis)
+        nlo = f[..., 6][:, None, :]
+        alpha = torch.clamp(torch.exp(-torch.maximum(s2, nlo)), max=ALPHA_CLAMP)
+        reach = in_range[:, None, :] & (gpos[:, None, :] <= last[t0:t1, :, None].long())
+        elig = (s2 >= nlo - tr.SIGMA_EPS) & (alpha >= ALPHA_THRESH)
+        walked += int(reach.sum())
+        composited += int((reach & elig).sum())
+    return walked, composited
+
+
+def backward_bound(args):
+    """Bytes: the live feature rows read once (the tiles' ranges end at
+    ``offsets[-1]``), every gradient row the function returns written once,
+    the per-pixel cotangents, T and last read once."""
+    from easy_gaussian_splatting_torch.ops.kernels.tile_raster import NUM_GRAD_COLS
+
+    feats, offsets, basis, g_img, g_t, t_fin, last = args
+    walked, composited = backward_pairs(feats, offsets, basis, last)
+    live = int(offsets[-1])
+    nbytes = live * feats.shape[1] * 4 + feats.shape[0] * NUM_GRAD_COLS * 4 \
+        + offsets.numel() * 4 + basis.numel() * 4 + g_img.numel() * 4 \
+        + (g_t.numel() + t_fin.numel() + last.numel()) * 4
+    ops = BACKWARD_OPS_PER_WALKED * walked + BACKWARD_OPS_PER_COMPOSITED * composited
+    return bound_ms(nbytes, ops) + (walked, composited)
+
+
+def segsum_bound(args):
+    """Row i of a group of L rows adds the min(L - i, LOOK) - 1 rows after
+    it, per column; each row is read and written once."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels.segments import LOOK
+
+    rows, g = args
+    sizes = torch.unique_consecutive(g, return_counts=True)[1].double()
+    short = torch.clamp(sizes, max=LOOK)
+    window_sum = short * (short + 1) / 2 + (sizes - short) * LOOK  # sum of min(k, LOOK)
+    adds = float((window_sum - sizes).sum()) * rows.shape[1]
+    return bound_ms(rows.numel() * 8 + g.numel() * 4, adds)
 
 
 # ------------------------------------------------------------------ main
@@ -414,7 +808,7 @@ def run(args) -> dict:
     fw_err = check_forward(fw_calls[0], tr.tiled_forward_plain)
 
     # ---- phase 5: serve
-    bk.launches = tr.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     viewer = build_viewer(RUN_DIR, port=0, device=device)
     try:
@@ -459,7 +853,8 @@ def run(args) -> dict:
             log(f"[5] /render {name} x{REQUEST_REPEATS}: {im.size[0]}x{im.size[1]} jpeg, "
                 f"{st['num_isects']} intersections of capacity {st['isect_cap']} "
                 f"({st['rerenders']} re-renders on the first request)")
-        served_counts = (bk.launches, tr.launches)
+        served_all = counts()
+        served_counts = (served_all["binkeys"], served_all["tiled_forward"])
         frames = len(served) + sum(st["rerenders"] for _, _, st in served)
         log(f"[5] launches: binkeys {served_counts[0]} (after build {after_build[0]}), "
             f"tiled_forward {served_counts[1]} (after build {after_build[1]}) over "
@@ -516,18 +911,108 @@ def run(args) -> dict:
             f"{float(np.median(req[1:])):.1f} ms (render + JPEG + HTTP); render alone "
             f"median {float(np.median(render_ms)):.1f} ms over {REQUEST_REPEATS}")
     log(f"[6] max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    profile_frames(render, first["dataset"][0])
+    profile_device(lambda: render(first["dataset"][0]), 3, "frame", "6")
+    del viewer, render, probe, ref, stats
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: training data
+    import dataclasses
+    import random
+
+    from easy_gaussian_splatting_torch.models.render import CameraView
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+    from easy_gaussian_splatting_torch.training import trainer as ttrainer
+    from easy_gaussian_splatting_torch.training.config import load_config
+    from easy_gaussian_splatting_torch.training.trainer import tune_inference_cfg
+
+    t0 = time.perf_counter()
+    tcfg = load_config(REPO / "configs" / "nerf_synthetic.yaml", **TRAIN_SCHEDULE,
+                       output=str(RUN_DIR / "train"))
+    xyzs, rgbs, state0, frames = training_data(args.gaussians, args.seed, tcfg, device)
+    log(f"[7] training data: {args.gaussians} gaussians (capacity {state0.capacity}), SH 3, "
+        f"{len(frames)} ring frames 800x800 rendered from the ground-truth copy in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("[7] config: configs/nerf_synthetic.yaml with " + json.dumps(TRAIN_SCHEDULE))
+
+    # ---- phase 8: the kernels at the inputs of one real step (the first
+    # step's state, camera and the trainer's capacity autotune)
+    f0 = frames[0]
+    w2c0, K0 = (torch.as_tensor(f0[k], device=device) for k in ("w2c", "K"))
+    img0, mask0 = (torch.as_tensor(f0[k], device=device) for k in ("image", "mask"))
+    cfg8 = tune_inference_cfg(dataclasses.replace(tcfg), state0, f0["w2c"], f0["K"], 800, 800, margin=1.2)
+    grad_fn = ttrainer.make_grad_fn(cfg8, ttrainer.get_render_fn(cfg8))
+    step_kw = dict(height=800, width=800, sh_degree=3)
+    with recording(tr, "tiled_backward") as bw_calls, recording(seg, "segsum_band") as seg_calls:
+        got = grad_fn(state0, w2c0, K0, img0, mask0, **step_kw)
+    check(len(bw_calls) == 1 and len(seg_calls) == 1, "unexpected backward kernel call pattern")
+    log(f"[8] one step: isect_mult {cfg8.isect_mult}, {bw_calls[0][0][0].shape[0]} intersection "
+        f"rows, {int(got[3].gt(0).sum())} visible gaussians")
+    bw_err, bw_plain = check_backward(bw_calls[0])
+    seg_err = check_segsum(seg_calls[0], state0.capacity)
+    with plain_swaps():
+        want = grad_fn(state0, w2c0, K0, img0, mask0, **step_kw)
+    check_step_gradients(got, want)
+    del got, want
+
+    # ---- phase 9: train
+    random.seed(args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    loop, rec = train_recorded(tcfg, RingScene(xyzs, rgbs, frames, tcfg.total_iterations), device)
+    train_s = time.perf_counter() - t0
+    train_counts = counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    log(f"[9] train(): {loop.step} steps in {train_s:.1f} s, {rec['densify']} densify events, "
+        f"{rec['reset']} opacity resets, {loop.model.num_alive()} gaussians at the end (capacity "
+        f"{loop.model.capacity}), final isect_mult {tcfg.isect_mult}")
+    log("[9] launches in train(): " + ", ".join(f"{k} {v}" for k, v in train_counts.items()))
+    log("[9] intersections / capacity per step: "
+        + " ".join(f"{s['isects']}/{s['cap']}" for s in rec["steps"]))
+    check_training(loop, rec, tcfg, device)
+
+    # ---- phase 10: numbers
+    step_ms = [rec["steps"][i]["ms"] for i in TIMED_STEPS]
+    bw_args, seg_args = bw_calls[0][0], seg_calls[0][0]
+    bw_ms = cuda_ms(lambda: tr.tiled_backward(*bw_args), 20)
+    seg_ms = cuda_ms(lambda: seg.segsum_band(*seg_args), 20)
+    seg_plain = cuda_ms(lambda: seg.segsum_band_plain(*seg_args), 3, 1)
+    bw_bound, bw_by, walked, composited = backward_bound(bw_args)
+    seg_bound, seg_by = segsum_bound(seg_args)
+    log(f"[10] card: {card}")
+    log(f"[10] train step (steps 15-19, host clock between synchronizes): median "
+        f"{float(np.median(step_ms)):.2f} ms, each " + " ".join(f"{x:.2f}" for x in step_ms)
+        + f"; all 40: " + " ".join(f"{s['ms']:.1f}" for s in rec["steps"]))
+    log(f"[10] tiled_backward: {bw_ms:.4f} ms/step, plain {bw_plain:.4f} ms (one call), bound "
+        f"{bw_bound:.4f} ms ({bw_by}); {walked} (pixel, intersection) pairs walked, "
+        f"{composited} composited")
+    log(f"[10] segsum_band: {seg_ms:.4f} ms/step, plain {seg_plain:.4f} ms, bound "
+        f"{seg_bound:.4f} ms ({seg_by}); {seg_args[0].shape[0]} rows")
+    log("[10] launches per step in train(): " + ", ".join(
+        f"{k} {v / loop.step:g}" for k, v in train_counts.items()))
+    log(f"[10] max_memory_allocated during train(): {train_peak / 2**20:.0f} MiB")
+    step_fn = ttrainer.make_train_step(tcfg, ttrainer.get_render_fn(tcfg))
+    fp = frames[0]
+    fp_t = [torch.as_tensor(fp[k], device=device) for k in ("w2c", "K", "image", "mask")]
+    profile_device(
+        lambda: step_fn(loop.model, loop.adam, *fp_t, 1e-4, True, False, False, **step_kw),
+        3, "step", "10",
+    )
+    measured = {
+        "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
+        "tiled_forward": ("tile_forward.cu", "tile_raster.py:355", fw_err, fw_ms, fw_plain,
+                          fw_bound, fw_by),
+        "tiled_backward": ("tile_backward.cu", "tile_raster.py:616", bw_err, bw_ms, bw_plain,
+                           bw_bound, bw_by),
+        "segsum_band": ("segsum_band.cu", "segments.py:267", seg_err, seg_ms, seg_plain,
+                        seg_bound, seg_by),
+    }
     kernels = [
-        dict(name="binkeys", route="cuda",
-             source="easy_gaussian_splatting_torch/csrc/binkeys.cu",
-             replaces="easy_gaussian_splatting_tpu/ops/pallas/binkeys.py:154",
-             launches=served_counts[0], max_abs_err=bk_err, ms=bk_ms,
-             plain_ms=bk_plain, bound_ms=bk_bound, bound_by=bk_by, library_ms=None),
-        dict(name="tiled_forward", route="cuda",
-             source="easy_gaussian_splatting_torch/csrc/tile_forward.cu",
-             replaces="easy_gaussian_splatting_tpu/ops/pallas/tile_raster.py:355",
-             launches=served_counts[1], max_abs_err=fw_err, ms=fw_ms,
-             plain_ms=fw_plain, bound_ms=fw_bound, bound_by=fw_by, library_ms=None),
+        dict(name=name, route="cuda", source=f"easy_gaussian_splatting_torch/csrc/{src}",
+             replaces=f"easy_gaussian_splatting_tpu/ops/pallas/{tpu}",
+             launches=train_counts[name], launches_served=served_all[name], max_abs_err=err,
+             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
+        for name, (src, tpu, err, ms, plain, bound, by) in measured.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -10,7 +10,8 @@
 // (px^2, py^2, px*py, px, py, 1, 1, 0), s2 = feats[0:7] . basis[0:7] is the
 // tile-local sigma plus nlo = -log(opacity) (feats column 6), and
 // alpha = min(exp(-max(s2, nlo)), 0.999). An intersection is eligible when
-// s2 >= nlo - SIGMA_EPS and alpha >= 1/255. Each pixel composites eligible
+// s2 >= nlo - SIGMA_EPS and alpha >= 1/255 (tile_eligibility.cuh, shared
+// with the backward, which replays it). Each pixel composites eligible
 // intersections in order, T_next = T * (1 - alpha); the first one that
 // would push T below 1e-4 is skipped and the pixel stops. Outputs: rgb
 // [T, P, 3], final T [T, P], and the global index of the last composited
@@ -31,14 +32,13 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_eligibility.cuh"
+
 namespace {
 
 constexpr int BATCH = 256;          // intersections staged per pass
 constexpr int NF4 = 4;              // float4 per feature row (16 floats)
-constexpr float ALPHA_CLAMP = 0.999f;
-constexpr float ALPHA_THRESH = 1.0f / 255.0f;
 constexpr float T_EPS = 1e-4f;
-constexpr float SIGMA_EPS = 1e-3f;
 
 __global__ void __launch_bounds__(1024) tile_forward_kernel(
     const float4* __restrict__ feats,   // [I, 16] as [I, 4] float4
@@ -75,11 +75,9 @@ __global__ void __launch_bounds__(1024) tile_forward_kernel(
         for (int i = 0; i < n; ++i) {
             const float4 f0 = rows[i * NF4];
             const float4 f1 = rows[i * NF4 + 1];
-            const float s2 = f0.x * b0 + f0.y * b1 + f0.z * b2 + f0.w * b3
-                + f1.x * b4 + f1.y * b5 + f1.z * b6;
-            const float nlo = f1.z;
-            const float alpha = fminf(expf(-fmaxf(s2, nlo)), ALPHA_CLAMP);
-            if (s2 >= nlo - SIGMA_EPS && alpha >= ALPHA_THRESH) {
+            const float s2 = egs_tile::sigma2(f0, f1, b0, b1, b2, b3, b4, b5, b6);
+            float alpha_raw, alpha;
+            if (egs_tile::eligible(s2, f1.z, &alpha_raw, &alpha)) {
                 const float t_next = T * (1.0f - alpha);
                 if (t_next < T_EPS) {
                     done = true;

@@ -32,7 +32,7 @@ def load_run(path, iterations=None, device="cuda"):
     dev = resolve_device(device)
     path = Path(path)
     cfg = load_config(path / "config.yaml")
-    state, sh_degree, _ = load_checkpoint(find_checkpoint(path, iterations), dev)
+    state, sh_degree, _, _ = load_checkpoint(find_checkpoint(path, iterations), dev)
     state = compact_for_inference(state)
     camera_states = load_camera_states(path)
     if camera_states:

@@ -162,6 +162,25 @@ def init_gaussian_state(
     return GaussianModelState(params=params, alive=alive, stats=zero_stats(capacity, dev))
 
 
+def grow_capacity(state: GaussianModelState, new_capacity: int) -> GaussianModelState:
+    """Re-pad every buffer to a larger capacity: new rows are dead, zero,
+    with identity quats."""
+    old = state.capacity
+    if new_capacity <= old:
+        raise ValueError(f"new capacity {new_capacity} <= current {old}")
+    extra = new_capacity - old
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))], dim=0)
+
+    quats = state.params.quats
+    ident = quats.new_zeros((extra, 4))
+    ident[:, 0] = 1.0
+    params = state.params.map(pad)
+    params.quats = torch.cat([quats, ident], dim=0)
+    return GaussianModelState(params=params, alive=pad(state.alive), stats=state.stats.map(pad))
+
+
 def compact_capacity(
     state: GaussianModelState, new_capacity: int
 ) -> tuple[GaussianModelState, torch.Tensor]:

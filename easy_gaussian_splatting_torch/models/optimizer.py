@@ -1,0 +1,117 @@
+"""Grouped Adam with densification-compatible moment surgery; counterpart of
+``easy_gaussian_splatting_tpu/models/optimizer.py``.
+
+One Adam over six named parameter groups with distinct learning rates
+(torch defaults: betas 0.9 / 0.999, eps 1e-8 added after the bias-
+corrected square root). Moments live in capacity-padded buffers shaped like
+the parameters, so "surgery" at a densify event is masked zeroing; each
+group has its own step count, and a group whose parameter was re-created
+this step (densify: all six; opacity reset: ``logit_opacities``) skips its
+update entirely. Every function here returns new tensors, as the JAX
+package's do: nothing is updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from .gaussians import PARAM_NAMES, GaussianParams
+
+BETA1 = 0.9
+BETA2 = 0.999
+EPS = 1e-8
+
+
+@dataclasses.dataclass
+class AdamState:
+    mu: GaussianParams
+    nu: GaussianParams
+    steps: Dict[str, torch.Tensor]  # per-group 0-dim i32
+
+
+def init_adam_state(params: GaussianParams) -> AdamState:
+    device = params.means.device
+    return AdamState(
+        mu=params.map(torch.zeros_like),
+        nu=params.map(torch.zeros_like),
+        steps={name: torch.zeros((), dtype=torch.int32, device=device) for name in PARAM_NAMES},
+    )
+
+
+def adam_update(
+    params: GaussianParams,
+    grads: GaussianParams,
+    state: AdamState,
+    lrs: Dict[str, float | torch.Tensor],  # per-group learning rate
+    skips: Dict[str, bool] | None = None,  # per-group: skip the update
+) -> tuple[GaussianParams, AdamState]:
+    """One Adam step per group. The bias corrections ``1 - beta**t`` are
+    taken in f32 on the step tensor, as the JAX package computes them."""
+    new_params, new_mu, new_nu, new_steps = {}, {}, {}, {}
+    for name in PARAM_NAMES:
+        p = getattr(params, name)
+        mu = getattr(state.mu, name)
+        nu = getattr(state.nu, name)
+        step = state.steps[name]
+        if skips is not None and bool(skips.get(name, False)):
+            new_params[name], new_mu[name], new_nu[name] = p, mu, nu
+            new_steps[name] = step
+            continue
+        g = getattr(grads, name)
+        step1 = step + 1
+        mu1 = BETA1 * mu + (1.0 - BETA1) * g
+        nu1 = BETA2 * nu + (1.0 - BETA2) * g * g
+        t = step1.to(torch.float32)
+        mu_hat = mu1 / (1.0 - torch.pow(BETA1, t))
+        nu_hat = nu1 / (1.0 - torch.pow(BETA2, t))
+        lr = lrs[name]
+        lr = lr if isinstance(lr, torch.Tensor) else float(lr)
+        upd = lr * mu_hat / (torch.sqrt(nu_hat) + EPS)
+        new_params[name] = p - upd
+        new_mu[name], new_nu[name], new_steps[name] = mu1, nu1, step1
+    return (
+        GaussianParams(**new_params),
+        AdamState(mu=GaussianParams(**new_mu), nu=GaussianParams(**new_nu), steps=new_steps),
+    )
+
+
+def mask_moments(
+    state: AdamState, keep_mask: torch.Tensor, group: str | None = None
+) -> AdamState:
+    """Zero the Adam moments where ``keep_mask`` is False (surgery for
+    densify/prune/opacity reset). ``group=None`` applies to all groups."""
+
+    def apply(tree: GaussianParams) -> GaussianParams:
+        out = {}
+        for name in PARAM_NAMES:
+            x = getattr(tree, name)
+            if group is not None and name != group:
+                out[name] = x
+            else:
+                m = keep_mask.reshape((-1,) + (1,) * (x.dim() - 1))
+                out[name] = torch.where(m, x, torch.zeros_like(x))
+        return GaussianParams(**out)
+
+    return AdamState(mu=apply(state.mu), nu=apply(state.nu), steps=state.steps)
+
+
+def permute_adam_state(state: AdamState, perm: torch.Tensor) -> AdamState:
+    """Apply a row permutation/selection to the moment buffers (capacity
+    compaction keeps moments aligned with their Gaussians)."""
+
+    def take(x):
+        return x[perm]
+
+    return AdamState(mu=state.mu.map(take), nu=state.nu.map(take), steps=state.steps)
+
+
+def grow_adam_state(state: AdamState, extra: int) -> AdamState:
+    """Pad moment buffers for capacity growth (new rows zero)."""
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))], dim=0)
+
+    return AdamState(mu=state.mu.map(pad), nu=state.nu.map(pad), steps=state.steps)

@@ -2,7 +2,8 @@
 ``easy_gaussian_splatting_tpu/models/render.py``: activations (exp
 scales, sigmoid opacities), EWA projection, SH colour along the
 camera->Gaussian direction, one rasterizer call with a background colour,
-and a [0, 1] clamp on the image."""
+and a [0, 1] clamp on the image. The returned ``radii`` and the gradient of
+``absgrad_dummy`` (the absgrad side channel) feed ``update_statistics``."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.clip import clip, maximum
 from ..ops.projection import CameraIntrinsics, project_gaussians
 from ..ops.rasterize_ref import rasterize
 from ..ops.sh import eval_sh_color_flat
@@ -41,9 +43,11 @@ def render(
     camera: CameraView,
     sh_degree: int,
     background: torch.Tensor,  # [3]
+    absgrad_dummy: torch.Tensor | None = None,  # [C, 2] zeros; its gradient
+    # is absgrad (None: forward only, as the viewer renders)
     chunk: int = 256,
-    rasterizer=None,  # (m2d, conics, colors, opac, depths, bg, H, W,
-    # radii=...) -> (img, alpha[, num_isects]); default: the oracle
+    rasterizer=None,  # (m2d, conics, colors, opac, depths, bg, absdummy,
+    # H, W, radii=...) -> (img, alpha[, num_isects]); default: the oracle
 ) -> RenderOutput:
     scales = torch.exp(params.log_scales)
     opacities = torch.sigmoid(params.logit_opacities) * alive.to(torch.float32)
@@ -58,7 +62,7 @@ def render(
         for j in range(3)
     ]
     dirs = torch.stack([params.means[:, j] - cam[j] for j in range(3)], dim=1)
-    dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-8)
+    dirs = dirs / maximum(torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-8)
     c = params.sh_0.shape[0]
     colors = eval_sh_color_flat(
         sh_degree, params.sh_0.reshape(c, 3), params.sh_rest.reshape(c, -1), dirs
@@ -69,11 +73,11 @@ def render(
         rasterizer = functools.partial(rasterize, chunk=chunk)
     out = rasterizer(
         proj.means2d, proj.conics, colors, opac_eff, proj.depths, background,
-        camera.height, camera.width, radii=proj.radii,
+        absgrad_dummy, camera.height, camera.width, radii=proj.radii,
     )
     img, alpha = out[0], out[1]
     num_isects = out[2] if len(out) > 2 else None
     return RenderOutput(
-        image=torch.clamp(img, 0.0, 1.0), alpha=alpha, radii=proj.radii,
+        image=clip(img, 0.0, 1.0), alpha=alpha, radii=proj.radii,
         num_isects=num_isects,
     )

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/torch_kernels/``
 at the repository root, at first use, and loaded with ``ctypes``. The
-library's file name carries a hash of its source and flags, so an edited
-kernel rebuilds and a stale one is never loaded. Nothing here runs at
-import: the CPU tests import every module on a machine without ``nvcc``.
+library's file name carries a hash of its source, the headers beside it
+and its flags, so an edited kernel rebuilds and a stale one is never
+loaded. Nothing here runs at import: the CPU tests import every module on
+a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -27,10 +28,14 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-kernel extra flags; binkeys compares floats against a threshold and
-# must round like its op-by-op PyTorch version, so no FMA contraction
+# must round like its op-by-op PyTorch version, so no FMA contraction (the
+# tile kernels' shared eligibility test fixes its rounding with intrinsics,
+# csrc/tile_eligibility.cuh)
 EXTRA_FLAGS = {
     "binkeys": ("--fmad=false",),
     "tile_forward": (),
+    "tile_backward": (),
+    "segsum_band": (),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -47,9 +52,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
     flags = ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS[name]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    sources = [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]  # headers too
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in sources) + " ".join(flags).encode())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from .clip import clip, maximum
+
 NEAR_PLANE = 0.01
 FAR_PLANE = 1e10
 EPS2D = 0.3  # screen-space blur added to the 2D covariance diagonal
@@ -47,7 +49,7 @@ def _camera_covar_upper(quats, scales, R_cw, eps: float = 1e-12):
     """Upper triangle (s00,s01,s02,s11,s12,s22) of R_cw (R S S^T R^T) R_cw^T
     as six [N] tensors, expanded elementwise like the JAX version."""
     norm = torch.linalg.norm(quats, dim=-1, keepdim=True)
-    q = quats / torch.clamp(norm, min=eps)
+    q = quats / maximum(norm, eps)
     w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
     r = (
         (1.0 - 2.0 * (y * y + z * z), 2.0 * (x * y - w * z), 2.0 * (x * z + w * y)),
@@ -103,8 +105,8 @@ def project_gaussians(
     tan_fovy = 0.5 * intr.height / fy
     lim_x = 1.3 * tan_fovx
     lim_y = 1.3 * tan_fovy
-    tx = torch.clamp(x / zsafe, min=-lim_x, max=lim_x) * z
-    ty = torch.clamp(y / zsafe, min=-lim_y, max=lim_y) * z
+    tx = clip(x / zsafe, -lim_x, lim_x) * z
+    ty = clip(y / zsafe, -lim_y, lim_y) * z
 
     rz = 1.0 / zsafe
     rz2 = rz * rz
@@ -125,7 +127,7 @@ def project_gaussians(
     conic = torch.stack([c11 / det_safe, -c01 / det_safe, c00 / det_safe], dim=-1)
 
     b = 0.5 * (c00 + c11)
-    v1 = b + torch.sqrt(torch.clamp(b * b - det, min=0.01))
+    v1 = b + torch.sqrt(maximum(b * b - det, 0.01))
     radius = torch.ceil(3.0 * torch.sqrt(v1))
 
     mean2d = torch.stack([fx * x * rz + cx, fy * y * rz + cy], dim=-1)

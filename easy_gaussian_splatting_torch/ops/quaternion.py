@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from .clip import maximum
+
 
 def normalized_quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:
     """Convert already-normalized quaternions (wxyz, [..., 4]) to rotation
@@ -32,4 +34,4 @@ def normalized_quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:
 def quat_to_rotmat(quat: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Normalize quaternions (wxyz) then convert to rotation matrices."""
     norm = torch.linalg.norm(quat, dim=-1, keepdim=True)
-    return normalized_quat_to_rotmat(quat / torch.clamp(norm, min=eps))
+    return normalized_quat_to_rotmat(quat / maximum(norm, eps))

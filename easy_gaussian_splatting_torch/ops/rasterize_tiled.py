@@ -14,11 +14,17 @@ counterpart of the forward half of
 - Per-intersection features are packed once, with the Gaussian's
   quadratic form as a tile-local polynomial, and the ``tiled_forward``
   kernel composites each tile.
+- The gradient is a ``torch.autograd.Function`` (the JAX package's
+  custom-VJP core): the ``tiled_backward`` kernel writes one gradient row
+  per intersection, a stable sort by flat duplicate id groups each
+  Gaussian's rows, the ``segsum_band`` kernel sums each group onto its
+  first row, and one gather picks the group starts. Its absgrad side
+  channel is the gradient of ``absgrad_dummy``.
 
 Gaussians covering more than ``max_tiles_w * max_tiles_h`` tiles are
-clamped to a window centered on their tile, as in the JAX package. The
-dense reduction side channel, stripe rendering and the custom-gradient
-core come with the training and multi-device parts of the port.
+clamped to a window centered on their tile, as in the JAX package. Of the
+JAX package's backward reductions only ``band`` (its default) is ported;
+stripe rendering comes with the multi-device part of the port.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from .kernels import binkeys as binkeys_kernel
-from .kernels import tile_raster
+from .kernels import segments, tile_raster
 from .projection import CameraIntrinsics, project_gaussians
 from .rasterize_ref import ALPHA_THRESH
 
@@ -364,14 +370,91 @@ def _tiled_impl(
         ov_frac=ov_frac, small_budget=small_budget,
     )
     basis = tile_pixel_basis(geom, means2d.device)
-    rgb_t, tfin_t, _last = tile_raster.tiled_forward(feats, binning.tile_offsets, basis)
+    rgb_t, tfin_t, last_t = tile_raster.tiled_forward(feats, binning.tile_offsets, basis)
     img = tiles_to_image(rgb_t, geom, height, width)
     final_t = tiles_to_image(tfin_t, geom, height, width)
-    return img, final_t, binning
+    return img, final_t, (binning, feats, tfin_t, last_t)
+
+
+def _reduce_to_gaussians(rows, isect_flat, counts, num_isects, m: int) -> torch.Tensor:
+    """Per-intersection gradient rows [I, 16] -> per-Gaussian rows [C, 11].
+
+    1. a stable sort of (flat id, position) groups each Gaussian's <= m
+       rows in flat order, dead rows (flat id C*m) last, each dead row in a
+       group of its own so that no lookahead walks the dead tail;
+    2. one row gather into that order;
+    3. ``segsum_band`` sums each group onto its first row;
+    4. a gather of the rows at the group starts (exclusive cumsum of the
+       binning's live counts).
+    Exact when every live intersection fits the capacity; on a truncated
+    step the starts would misalign, so the gradient is zero (the
+    trainer's watchdog grows the capacity: one lost step, never a
+    corrupted one)."""
+    if m > segments.LOOK:
+        raise NotImplementedError(
+            f"max_tiles^2 = {m} > {segments.LOOK}: only the band backward "
+            "reduction is ported (ROADMAP.md Queue 1 item 6)"
+        )
+    icap, c = isect_flat.shape[0], counts.shape[0]
+    flat_sorted, perm = torch.sort(isect_flat, stable=True)
+    dead_ids = c + torch.arange(icap, dtype=flat_sorted.dtype, device=flat_sorted.device)
+    g = torch.where(
+        flat_sorted < c * m, torch.div(flat_sorted, m, rounding_mode="floor"), dead_ids
+    ).to(torch.int32)
+    sums = segments.segsum_band(rows[perm], g)
+    counts = counts.to(torch.int64)
+    starts = torch.cumsum(counts, 0) - counts
+    have = (counts > 0) & (num_isects <= icap)
+    dsum = sums[torch.clamp(starts, max=icap - 1), : tile_raster.NUM_LIVE_GRADS]
+    return torch.where(have[:, None], dsum, torch.zeros_like(dsum))
+
+
+class _RasterizeTiledCore(torch.autograd.Function):
+    """The tiled rasterizer with its hand-written gradient. Inputs
+    means2d, conics, colors, opacities and absgrad_dummy get gradients;
+    radii and depths (binning only) get none."""
+
+    @staticmethod
+    def forward(
+        ctx, means2d, conics, colors, opacities, radii, depths, absgrad_dummy,
+        height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
+        ov_frac, small_budget,
+    ):
+        img, final_t, (binning, feats, tfin_t, last_t) = _tiled_impl(
+            means2d, conics, colors, opacities, radii, depths,
+            height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
+            ov_frac, small_budget,
+        )
+        ctx.save_for_backward(
+            feats, tfin_t, last_t, binning.tile_offsets, binning.isect_flat,
+            binning.counts, binning.num_isects,
+        )
+        ctx.dims = (height, width, tile_size, max_tiles_w * max_tiles_h)
+        ctx.mark_non_differentiable(binning.num_isects)
+        return img, final_t, binning.num_isects
+
+    @staticmethod
+    def backward(ctx, g_img, g_t, _g_n):
+        feats, tfin_t, last_t, tile_offsets, isect_flat, counts, num_isects = ctx.saved_tensors
+        height, width, tile_size, m = ctx.dims
+        geom = image_geometry(height, width, tile_size)
+        basis = tile_pixel_basis(geom, feats.device)
+        rows = tile_raster.tiled_backward(
+            feats, tile_offsets, basis,
+            image_to_tiles(g_img.contiguous(), geom, height, width).contiguous(),
+            image_to_tiles(g_t.contiguous(), geom, height, width).contiguous(),
+            tfin_t, last_t,
+        )
+        dsum = _reduce_to_gaussians(rows, isect_flat, counts, num_isects, m)
+        v_abs = dsum[:, 9:11] if ctx.needs_input_grad[6] else None
+        return (
+            dsum[:, 0:2], dsum[:, 2:5], dsum[:, 6:9], dsum[:, 5], None, None, v_abs,
+            None, None, None, None, None, None, None, None,
+        )
 
 
 def rasterize_tiled(
-    means2d, conics, colors, opacities, depths, background,
+    means2d, conics, colors, opacities, depths, background, absgrad_dummy,
     height, width, *, radii,
     tile_size: int = DEFAULT_TILE,
     max_tiles_w: int = DEFAULT_MAX_TILES_W,
@@ -384,20 +467,24 @@ def rasterize_tiled(
     """Tiled rasterization with the unified rasterizer signature (see
     ``models/render.py``). Returns (image [H,W,3], alpha [H,W]), plus the
     binned intersection count (a device scalar) when ``return_isects``;
-    intersections beyond ``isect_capacity(C, isect_mult)`` are dropped."""
+    intersections beyond ``isect_capacity(C, isect_mult)`` are dropped,
+    and then the step's gradient is zero. The gradient of
+    ``absgrad_dummy`` ([C, 2] zeros, or None) is the absgrad side channel.
+    The background blend stays outside the custom gradient, so autograd
+    carries its gradient into the final transmittance."""
     if tile_size * tile_size > tile_raster.MAX_TILE_PIXELS:
         raise ValueError(f"tile_size {tile_size} > 32: one thread per tile pixel")
     isect_cap = isect_capacity(means2d.shape[0], isect_mult)
     # zero-opacity gaussians (dead capacity slots, culls) are never binned
     radii = torch.where(opacities > 0.0, radii, torch.zeros_like(radii))
-    img, final_t, binning = _tiled_impl(
-        means2d, conics, colors, opacities, radii, depths,
+    img, final_t, num_isects = _RasterizeTiledCore.apply(
+        means2d, conics, colors, opacities, radii, depths, absgrad_dummy,
         height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
         ov_frac, small_budget,
     )
     img = img + final_t[..., None] * background[None, None, :]
     if return_isects:
-        return img, 1.0 - final_t, binning.num_isects
+        return img, 1.0 - final_t, num_isects
     return img, 1.0 - final_t
 
 

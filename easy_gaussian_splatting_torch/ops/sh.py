@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from .clip import maximum
+
 C0 = 0.28209479177387814
 C1 = 0.4886025119029199
 C2 = (
@@ -92,4 +94,4 @@ def eval_sh_color_flat(
 ) -> torch.Tensor:
     """SH -> clamped RGB, the rasterizer's post-processing
     ``max(eval + 0.5, 0)``."""
-    return torch.clamp(eval_sh_flat(degree, sh0, sh_rest, dirs) + 0.5, min=0.0)
+    return maximum(eval_sh_flat(degree, sh0, sh_rest, dirs) + 0.5, 0.0)

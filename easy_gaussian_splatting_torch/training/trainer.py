@@ -1,22 +1,64 @@
-"""Renderer selection and the inference binning autotune; counterpart of
-``get_render_fn`` and ``tune_inference_cfg`` in
-``easy_gaussian_splatting_tpu/training/trainer.py``. The train step and
-loop come with the training part of the port."""
+"""The training loop and the train step; counterpart of
+``easy_gaussian_splatting_tpu/training/trainer.py``.
+
+One step is render -> loss -> backward -> statistics -> grouped Adam for
+one camera; refine events (every ``refine_every`` steps) run densify and
+prune with that step's weight update skipped; scalars are read back a few
+steps late so the host never waits on the card. PyTorch runs eagerly, so
+there is no jit and no background precompiler: a new capacity or SH degree
+needs no rebuild.
+
+Waiting for later parts of the port (each raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item): the scene loaders (``scene=None``), eval
+frames, the device-resident frame cache, ``mesh_shape``, ``view_online``
+and the ``profile_steps`` window; the batched multi-camera step is not
+ported yet either.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import logging
 import math
-from typing import Callable
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..models.render import render
+from .. import resolve_device
+from ..models.density import (
+    DensifyConfig,
+    densify_and_prune,
+    reset_opacities,
+    update_statistics,
+)
+from ..models.gaussians import (
+    PARAM_NAMES,
+    GaussianModelState,
+    GaussianParams,
+    _round_up_capacity,
+    compact_capacity,
+    grow_capacity,
+    init_gaussian_state,
+)
+from ..models.loss import loss_dict
+from ..models.optimizer import (
+    AdamState,
+    adam_update,
+    grow_adam_state,
+    init_adam_state,
+    permute_adam_state,
+)
+from ..models.render import CameraView, render
+from ..ops.lr_schedule import log_lerp_schedule
 from .config import Config
 
 logger = logging.getLogger(__name__)
+
+LR_GROUPS = ("log_scales", "quats", "sh_0", "sh_rest", "logit_opacities")
 
 
 def get_render_fn(cfg: Config) -> Callable:
@@ -83,3 +125,497 @@ def tune_inference_cfg(
         f"ov_frac {cfg.ov_frac}"
     )
     return cfg
+
+
+def _background(cfg: Config, device) -> torch.Tensor:
+    return torch.full((3,), 1.0 if cfg.white_background else 0.0, dtype=torch.float32, device=device)
+
+
+def _loss_and_grads(cfg: Config, render_fn: Callable, model: GaussianModelState,
+                    camera: CameraView, image, mask, sh_degree: int):
+    """One camera's loss dict and pre-Adam gradients: (grads, absgrad [C, 2],
+    loss dict, radii [C], num_isects or None), all detached."""
+    leaves = model.params.map(lambda x: x.detach().requires_grad_(True))
+    absd = torch.zeros((model.capacity, 2), dtype=torch.float32,
+                       device=model.alive.device, requires_grad=True)
+    out = render_fn(leaves, model.alive, camera, sh_degree,
+                    _background(cfg, model.alive.device), absd)
+    ld = loss_dict(
+        out.image, image, mask, cfg.lambda_ssim,
+        log_scales=leaves.log_scales, alive=model.alive,
+        use_scale_regularization=cfg.use_scale_regularization,
+        max_scale_ratio=cfg.max_scale_ratio, lambda_scale=cfg.lambda_scale,
+    )
+    inputs = [getattr(leaves, n) for n in PARAM_NAMES] + [absd]
+    # a parameter the render does not reach (sh_rest at degree 0) gets
+    # zeros, as jax.grad gives
+    grads = torch.autograd.grad(ld["total"], inputs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+    return (
+        GaussianParams(**dict(zip(PARAM_NAMES, grads[:-1]))),
+        grads[-1],
+        {k: v.detach() for k, v in ld.items()},
+        out.radii.detach(),
+        out.num_isects,
+    )
+
+
+def make_train_step(cfg: Config, render_fn: Callable):
+    static_lrs = {
+        "log_scales": cfg.log_scales_lr,
+        "quats": cfg.quats_lr,
+        "sh_0": cfg.sh_0_lr,
+        "sh_rest": cfg.sh_rest_lr,
+        "logit_opacities": cfg.logit_opacities_lr,
+    }
+
+    def train_step(
+        model: GaussianModelState,
+        adam: AdamState,
+        w2c: torch.Tensor,
+        K: torch.Tensor,
+        image: torch.Tensor,
+        mask: torch.Tensor,
+        lr_means: float,
+        do_stats: bool,  # inside the refine window
+        skip_all: bool,  # densify event this step
+        skip_opac: bool,  # opacity reset this step
+        *,
+        height: int,
+        width: int,
+        sh_degree: int,
+    ):
+        camera = CameraView(w2c=w2c, K=K, width=width, height=height)
+        grads, absgrad, ld, radii, num_isects = _loss_and_grads(
+            cfg, render_fn, model, camera, image, mask, sh_degree
+        )
+        if num_isects is not None:
+            # capacity-watchdog channel: rides the delayed loss readback
+            ld["isects"] = num_isects.to(torch.float32)
+        stats = model.stats
+        if do_stats:
+            stats = update_statistics(model.stats, radii, absgrad, height, width)
+        lrs = dict(static_lrs, means=lr_means)
+        skips = {
+            name: (skip_all or skip_opac) if name == "logit_opacities" else skip_all
+            for name in ("means",) + LR_GROUPS
+        }
+        params_new, adam_new = adam_update(model.params, grads, adam, lrs, skips)
+        return GaussianModelState(params=params_new, alive=model.alive, stats=stats), adam_new, ld
+
+    return train_step
+
+
+def make_grad_fn(cfg: Config, render_fn: Callable):
+    """Pre-Adam gradients of the single-camera step: (grads, absgrad, loss
+    dict, radii)."""
+
+    def grad_fn(model, w2c, K, image, mask, *, height, width, sh_degree):
+        camera = CameraView(w2c=w2c, K=K, width=width, height=height)
+        grads, absgrad, ld, radii, _ = _loss_and_grads(
+            cfg, render_fn, model, camera, image, mask, sh_degree
+        )
+        return grads, absgrad, ld, radii
+
+    return grad_fn
+
+
+def _dcfg(cfg: Config) -> DensifyConfig:
+    return DensifyConfig(
+        densify_grad_thresh=cfg.densify_grad_thresh,
+        densify_scale_thresh=cfg.densify_scale_thresh,
+        num_splits=cfg.num_splits,
+        prune_radii_ratio_thresh=cfg.prune_radii_ratio_thresh,
+        prune_scale_thresh=cfg.prune_scale_thresh,
+        min_opacity=cfg.min_opacity,
+    )
+
+
+def make_densify_step(cfg: Config):
+    dcfg = _dcfg(cfg)
+
+    def densify_step(model, adam, generator):
+        return densify_and_prune(model, adam, generator, dcfg)
+
+    return densify_step
+
+
+@dataclasses.dataclass
+class TrainLoopState:
+    """Host-side mutable training context."""
+
+    model: GaussianModelState
+    adam: AdamState
+    active_sh_degree: int
+    step: int = 0
+
+
+def run_densify_with_growth(
+    loop: TrainLoopState,
+    densify_step,
+    generator: torch.Generator,
+    cfg: Config,
+) -> Dict[str, int]:
+    """Run a densify event; on free-slot overflow, grow capacity (x2) and
+    retry on the pre-event state with the same split noise."""
+    gen_state = generator.get_state()
+    while True:
+        generator.set_state(gen_state)
+        new_model, new_adam, info, overflow = densify_step(loop.model, loop.adam, generator)
+        if not bool(overflow):
+            n = int(info["nbr_gaussians"])
+            cap = loop.model.capacity
+            # pre-emptive growth: keep >= 15% headroom for the next event
+            if n > 0.85 * cap and cap < cfg.max_capacity:
+                new_cap = min(cap * 2, cfg.max_capacity)
+                logger.info(f"growing capacity {cap} -> {new_cap} ({n} gaussians alive)")
+                loop.model = grow_capacity(new_model, new_cap)
+                loop.adam = grow_adam_state(new_adam, new_cap - cap)
+            else:
+                # compact only when the 1.3x-headroom target is at most
+                # half the capacity (a softer threshold oscillates between
+                # growing and compacting, as in the JAX package)
+                want = _round_up_capacity(int(n * 1.3)) if cfg.shrink_capacity else cap
+                if want * 2 <= cap:
+                    logger.info(f"compacting capacity {cap} -> {want} ({n} gaussians alive)")
+                    loop.model, perm = compact_capacity(new_model, want)
+                    loop.adam = permute_adam_state(new_adam, perm)
+                else:
+                    loop.model, loop.adam = new_model, new_adam
+            return {k: int(v) for k, v in info.items()}
+        cap = loop.model.capacity
+        if cap >= cfg.max_capacity:
+            logger.warning(f"densify overflow at max capacity {cap}; dropping excess")
+            loop.model, loop.adam = new_model, new_adam
+            return {k: int(v) for k, v in info.items()}
+        new_cap = min(cap * 2, cfg.max_capacity)
+        logger.info(f"densify overflow: growing capacity {cap} -> {new_cap}")
+        loop.model = grow_capacity(loop.model, new_cap)
+        loop.adam = grow_adam_state(loop.adam, new_cap - cap)
+
+
+class _PendingScalars:
+    """A step's loss dict copied to the host without waiting: the copy goes
+    into pinned memory behind an event, and is read once the event has
+    passed (a few steps later)."""
+
+    def __init__(self, ld: Dict[str, torch.Tensor]):
+        self.keys = list(ld)
+        vals = torch.stack([ld[k].to(torch.float32) for k in self.keys])
+        self.event = None
+        if vals.is_cuda:
+            self.host = torch.empty(vals.shape, dtype=torch.float32, pin_memory=True)
+            self.host.copy_(vals, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = vals
+
+    def get(self) -> Dict[str, float]:
+        if self.event is not None:
+            self.event.synchronize()
+        return dict(zip(self.keys, self.host.tolist()))
+
+
+def _frame_tensors(data: Dict[str, Any], device, keys=("w2c", "K", "image", "mask")):
+    """The frame dict's arrays as f32 tensors on ``device``."""
+    return [torch.as_tensor(np.asarray(data[k], np.float32)).to(device) for k in keys]
+
+
+def train(
+    cfg: Config, scene=None, resume_from: Optional[str] = None,
+    device: str | torch.device = "cuda",
+) -> TrainLoopState:
+    """Full single-device training run over ``scene`` (an object with the
+    JAX ``Scene``'s interface: ``pc.xyzs``, ``pc.rgbs``, ``pc.nbr_points``,
+    ``nbr_data(split)``, ``get_data(split, i)``). Returns the final loop
+    state (also checkpointed at ``save_model_iterations`` when ``output``
+    is set). ``resume_from``: a checkpoint path; with optimizer state the
+    run continues exactly, without it Adam restarts."""
+    from ..scene.scene import prefetch_frames
+    from ..utils.checkpoint import load_checkpoint, save_checkpoint
+    from ..utils.tb import create_tb_writer, tb_report
+
+    dev = resolve_device(device)
+    if scene is None:
+        raise NotImplementedError(
+            "train() needs a scene object: the COLMAP/Blender loaders are not "
+            "ported yet (ROADMAP.md Queue 1 item 4)"
+        )
+    if scene.nbr_data("eval") > 0:
+        raise NotImplementedError(
+            "eval frames: evaluation is not ported yet (ROADMAP.md Queue 1 item 4)"
+        )
+    if cfg.mesh_shape:
+        raise NotImplementedError(
+            f"mesh_shape {cfg.mesh_shape!r}: multi-device training is not ported "
+            "yet (ROADMAP.md Queue 1 item 7)"
+        )
+    if cfg.data_device_cache:
+        raise NotImplementedError(
+            "data_device_cache: the device-resident frame cache is not ported "
+            "yet (ROADMAP.md Queue 1 item 4); set data_device_cache: false"
+        )
+    if cfg.profile_steps > 0:
+        raise NotImplementedError(
+            "profile_steps: the training profiler window is not ported yet "
+            "(utils/profiling.py, ROADMAP.md Queue 1 item 4)"
+        )
+    if cfg.view_online:
+        raise NotImplementedError(
+            "view_online: the training viewer is not ported yet (ROADMAP.md "
+            "Queue 1 item 5)"
+        )
+
+    if resume_from is not None:
+        model, sh_deg, start_step, adam = load_checkpoint(Path(resume_from), dev)
+        if adam is None:
+            logger.warning(
+                f"checkpoint {resume_from} has no optimizer state: resuming "
+                "with fresh Adam moments (a warm start, not an exact continuation)"
+            )
+            adam = init_adam_state(model.params)
+        logger.info(
+            f"resumed from {resume_from} at step {start_step} ({model.num_alive()} gaussians)"
+        )
+        loop = TrainLoopState(model=model, adam=adam, active_sh_degree=sh_deg, step=start_step)
+    else:
+        capacity = cfg.initial_capacity if cfg.initial_capacity > 0 else None
+        model = init_gaussian_state(
+            scene.pc.xyzs, scene.pc.rgbs, cfg.sh_degree, capacity=capacity, device=dev
+        )
+        logger.info(f"initialized {scene.pc.nbr_points} gaussians (capacity {model.capacity})")
+        loop = TrainLoopState(
+            model=model,
+            adam=init_adam_state(model.params),
+            active_sh_degree=0 if cfg.sh_degree_interval != 0 else cfg.sh_degree,
+        )
+
+    render_fn = get_render_fn(cfg)
+    train_step = make_train_step(cfg, render_fn)
+
+    # intersection-capacity watchdog for the tiled renderer: if the binned
+    # count nears isect_mult * capacity, deep tiles would be truncated
+    # (and the step's gradient zeroed), so the multiplier grows
+    isect_counter = None
+    overflow_steps = 0  # steps whose gradient was zeroed by isect overflow
+    if cfg.renderer == "tiled":
+        from ..ops.rasterize_tiled import (
+            BUDGET_CANDIDATES,
+            _ov_capacity,
+            make_isect_counter,
+            max_isect_cap,
+        )
+
+        def _make_counter():
+            return make_isect_counter(
+                cfg.tile_size, cfg.max_tiles, cfg.max_tiles,
+                ov_frac=cfg.ov_frac, small_budget=cfg.small_budget,
+            )
+
+        isect_counter = _make_counter()
+
+    def count_isects(data):
+        w2c, K = _frame_tensors(data, dev, ("w2c", "K"))
+        vals = isect_counter(
+            loop.model.params, loop.model.alive, w2c, K,
+            height=data["height"], width=data["width"],
+        )
+        return vals.cpu().numpy()
+
+    def autotune_isect_mult(data):
+        """Size the intersection capacity from the first frame's count (it
+        drives the per-row costs); the watchdog grows it if later frames
+        need more. Also picks the small-population budget and overflow
+        fraction with the smallest binning sort domain."""
+        nonlocal render_fn, train_step, isect_counter
+        if isect_counter is None:
+            return
+        vals = count_isects(data)
+        n, n_ov = int(vals[0]), int(vals[1])
+        cap = loop.model.capacity
+        max_mult = max_isect_cap(cfg.isect_hbm_budget_mb) / max(cap, 1)
+        want = math.floor(min(max(0.25, n * 1.2 / cap), max_mult) * 1e3) / 1e3
+        m_cells = cfg.max_tiles * cfg.max_tiles
+        want_b, want_ov, best_dom = cfg.small_budget, cfg.ov_frac, None
+        for bb, need in zip(BUDGET_CANDIDATES, vals[2:]):
+            if bb >= m_cells:
+                continue
+            ovf = round(max(0.01, min(1.0, int(need) * 2.0 / cap)), 3)
+            dom = cap * bb + m_cells * _ov_capacity(cap, ovf)
+            if best_dom is None or dom < best_dom:
+                want_b, want_ov, best_dom = bb, ovf, dom
+        if want != cfg.isect_mult or want_ov != cfg.ov_frac or want_b != cfg.small_budget:
+            logger.info(
+                f"isect autotune: {n} intersections / {n_ov} overflow on the first "
+                f"frame -> isect_mult {cfg.isect_mult} -> {want}, ov_frac "
+                f"{cfg.ov_frac} -> {want_ov}, small_budget {cfg.small_budget} -> {want_b}"
+            )
+            cfg.isect_mult = want
+            cfg.ov_frac = want_ov
+            cfg.small_budget = want_b
+            render_fn = get_render_fn(cfg)
+            train_step = make_train_step(cfg, render_fn)
+            isect_counter = _make_counter()
+
+    def maybe_grow_isect_mult(n: int, at_step: int) -> None:
+        """Grow the intersection capacity when the binned count nears it.
+        Fed from the train step's own binning (the 'isects' loss-dict
+        channel) and once per densify event, right after the population
+        jump (the JAX package counts just before the event)."""
+        nonlocal render_fn, train_step, overflow_steps
+        cap = cfg.isect_mult * loop.model.capacity
+        if n > cap:
+            overflow_steps += 1
+            logger.warning(
+                f"step {at_step}: {n} intersections exceeded capacity {cap:.0f}: "
+                f"that step's gradient was zeroed ({overflow_steps} overflow steps total)"
+            )
+            if tb_writer is not None:
+                tb_report(tb_writer, at_step, {"train/overflow_steps": overflow_steps})
+        if n > 0.9 * cap:
+            max_mult = max_isect_cap(cfg.isect_hbm_budget_mb) / max(loop.model.capacity, 1)
+            want_mult = math.floor(min(cfg.isect_mult * 2, max_mult) * 1e3) / 1e3
+            if want_mult <= cfg.isect_mult:
+                logger.warning(
+                    f"intersections {n} near capacity {cap:.0f} but isect_mult "
+                    f"{cfg.isect_mult} is at the memory budget "
+                    f"({cfg.isect_hbm_budget_mb} MB): not growing"
+                )
+                return
+            cfg.isect_mult = want_mult
+            logger.info(f"intersections {n} near capacity {cap:.0f}: raising isect_mult to {cfg.isect_mult}")
+            render_fn = get_render_fn(cfg)
+            train_step = make_train_step(cfg, render_fn)
+
+    def check_isect_capacity(data):
+        nonlocal render_fn, train_step, isect_counter, autotuned
+        if isect_counter is None:
+            return
+        vals = count_isects(data)
+        n, n_ov = int(vals[0]), int(vals[1])
+        # re-tighten an oversized capacity (the startup autotune saw the
+        # initial population); 2x hysteresis against the 1.2x target
+        want_tight = max(0.25, n * 1.2 / max(loop.model.capacity, 1))
+        if cfg.isect_mult > 2.0 * want_tight:
+            logger.info(
+                f"isect_mult {cfg.isect_mult} oversized for {n} intersections at "
+                f"capacity {loop.model.capacity}: re-running the binning autotune"
+            )
+            autotuned = False  # the main loop re-runs autotune_isect_mult
+            return
+        ov_cap = _ov_capacity(loop.model.capacity, cfg.ov_frac)
+        if n_ov > 0.85 * ov_cap:
+            cfg.ov_frac = round(min(1.0, cfg.ov_frac * 2.0), 3)
+            logger.info(f"{n_ov} overflow gaussians near capacity {ov_cap}: raising ov_frac to {cfg.ov_frac}")
+            render_fn = get_render_fn(cfg)
+            train_step = make_train_step(cfg, render_fn)
+            isect_counter = _make_counter()
+        maybe_grow_isect_mult(n, loop.step)
+
+    densify_step = make_densify_step(cfg)
+    means_lr = log_lerp_schedule(
+        cfg.means_lr_init, cfg.means_lr_final, cfg.means_lr_schedule_max_steps
+    )
+    generator = torch.Generator(device=dev).manual_seed(cfg.random_seed)
+
+    tb_writer = None
+    if cfg.output is not None:
+        tb_path = Path(cfg.output) / "tensorboard"
+        logger.info(f"monitor training status: tensorboard --logdir {tb_path}")
+        tb_writer = create_tb_writer(str(tb_path))
+
+    save_iters = set(cfg.save_model_iterations)
+    t_start = time.time()
+    last_loss = float("nan")
+    autotuned = False
+    # delayed loss readback: sampled steps' scalars are read three samples
+    # later, so the host never waits for the card inside the loop
+    pending_losses: list = []
+
+    def _drain_losses(min_pending: int) -> None:
+        nonlocal last_loss
+        while len(pending_losses) > min_pending:
+            old_step, old = pending_losses.pop(0)
+            losses = old.get()
+            n_isects = losses.pop("isects", None)
+            last_loss = losses["total"]
+            if tb_writer is not None:
+                tb_report(tb_writer, old_step, {"train/loss": losses})
+            if n_isects is not None:
+                if tb_writer is not None:
+                    tb_report(tb_writer, old_step, {"train/num_isects": n_isects})
+                maybe_grow_isect_mult(int(n_isects), old_step)
+
+    for data in prefetch_frames(scene, "train", shuffle=True, num_workers=cfg.dataloader_workers):
+        if loop.step >= cfg.total_iterations:
+            # resumed runs start mid-schedule; the index tiling still spans
+            # the full budget
+            break
+        loop.step += 1
+        step = loop.step
+        all_tb_info: Dict[str, Any] = {}
+
+        if not autotuned:
+            autotune_isect_mult(data)
+            autotuned = True
+
+        in_refine = cfg.refine_start < step <= cfg.refine_stop
+        densify_now = in_refine and (step - cfg.refine_start) % cfg.refine_every == 0
+        reset_now = in_refine and (step - cfg.refine_start) % cfg.reset_opacities_every == 0
+
+        w2c, K, image, mask = _frame_tensors(data, dev)
+        loop.model, loop.adam, ld = train_step(
+            loop.model, loop.adam, w2c, K, image, mask,
+            means_lr(step), in_refine, densify_now, reset_now,
+            height=data["height"], width=data["width"], sh_degree=loop.active_sh_degree,
+        )
+
+        log_now = (
+            step == 1
+            or step % cfg.log_every == 0
+            or step % cfg.eval_every == 0
+            or densify_now
+        )
+        if log_now or step % 10 == 0:
+            pending_losses.append((step, _PendingScalars(ld)))
+            _drain_losses(min_pending=3)
+
+        if step in save_iters and cfg.output is not None:
+            save_checkpoint(
+                Path(cfg.output) / "checkpoints" / f"iterations_{step}.npz",
+                loop.model, loop.active_sh_degree, step,
+                adam=loop.adam if cfg.save_optimizer_state else None,
+            )
+
+        if densify_now:
+            info = run_densify_with_growth(loop, densify_step, generator, cfg)
+            # on the grown population, so the next step's capacity covers it
+            check_isect_capacity(data)
+            all_tb_info["train/densify"] = {"split": info["split"], "clone": info["clone"]}
+            all_tb_info["train/prune"] = {
+                "low_opacity": info["prune_low_opacity"],
+                "large_radii": info["prune_large_radii"],
+                "large_scale": info["prune_large_scale"],
+            }
+            all_tb_info["train/nbr_gaussians"] = info["nbr_gaussians"]
+        if reset_now:
+            loop.model, loop.adam = reset_opacities(loop.model, loop.adam, cfg.min_opacity)
+
+        if cfg.sh_degree_interval != 0 and step % cfg.sh_degree_interval == 0:
+            loop.active_sh_degree = min(loop.active_sh_degree + 1, cfg.sh_degree)
+
+        if tb_writer is not None and log_now:
+            tb_report(tb_writer, step, all_tb_info)
+
+        if step % 100 == 0:
+            elapsed = time.time() - t_start
+            logger.info(
+                f"step {step}/{cfg.total_iterations} loss={last_loss:.5f} "
+                f"({step / elapsed:.2f} it/s)"
+            )
+
+    _drain_losses(min_pending=0)
+    if tb_writer is not None:
+        tb_writer.close()
+    return loop

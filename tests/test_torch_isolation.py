@@ -26,7 +26,15 @@ for name in names:
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "easy_gaussian_splatting_tpu") and sys.modules[m] is not None]
 print(len(names), bad)
+print(" ".join(names))
 """
+
+# the training slice's modules, each of which must be among those imported
+TRAINING_MODULES = (
+    "ops.clip", "ops.ssim", "ops.lr_schedule", "ops.kernels.segments",
+    "models.loss", "models.optimizer", "models.density", "scene.scene",
+    "utils.tb", "training.trainer",
+)
 
 
 def test_port_imports_without_jax():
@@ -36,8 +44,12 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(maxsplit=1)
-    assert int(n) >= 20 and bad.strip() == "[]"
+    counts, names = out.stdout.strip().split("\n")
+    n, bad = counts.split(maxsplit=1)
+    assert int(n) >= 30 and bad.strip() == "[]"
+    imported = set(names.split())
+    for mod in TRAINING_MODULES:
+        assert f"easy_gaussian_splatting_torch.{mod}" in imported, mod
 
 
 def test_entry_points_refuse_cpu_unless_asked(monkeypatch, tmp_path):
@@ -67,6 +79,11 @@ def test_entry_points_refuse_cpu_unless_asked(monkeypatch, tmp_path):
         params_from_numpy({k: np.zeros((1, 3)) for k in ("means",)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_viewer(tmp_path)
+    from easy_gaussian_splatting_torch.training.config import config_from_dict
+    from easy_gaussian_splatting_torch.training.trainer import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(config_from_dict(dict(data_device_cache=False)), scene=object())
     assert egt.resolve_device("cpu") == torch.device("cpu")
 
 

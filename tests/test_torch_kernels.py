@@ -13,6 +13,7 @@ import torch
 from easy_gaussian_splatting_torch.ops import rasterize_tiled as trt
 from easy_gaussian_splatting_torch.ops.kernels import _build
 from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+from easy_gaussian_splatting_torch.ops.kernels import segments as seg
 from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
 
 pytestmark = pytest.mark.cuda
@@ -48,7 +49,7 @@ def _scene(rng, n, height, width, device):
 
 def test_build_all(cuda):
     secs = _build.build_all()
-    assert set(secs) == {"binkeys", "tile_forward"}
+    assert set(secs) == {"binkeys", "tile_forward", "tile_backward", "segsum_band"}
 
 
 @pytest.mark.parametrize("small_budget", [2, 4, 9])
@@ -108,16 +109,67 @@ def test_rasterize_tiled_kernels_match_plain(cuda, rng):
     m2d, con, col, opa, dep, rad = scene
     bg = torch.tensor([0.2, 0.3, 0.4], device=cuda)
     kw = dict(radii=rad, tile_size=32, isect_mult=6, return_isects=True)
-    img, alpha, n = trt.rasterize_tiled(m2d, con, col, opa, dep, bg, h, w, **kw)
+    img, alpha, n = trt.rasterize_tiled(m2d, con, col, opa, dep, bg, None, h, w, **kw)
     orig = (bk.binkeys, tr.tiled_forward)
     bk.binkeys, tr.tiled_forward = bk.binkeys_plain, tr.tiled_forward_plain
     try:
-        img_p, alpha_p, n_p = trt.rasterize_tiled(m2d, con, col, opa, dep, bg, h, w, **kw)
+        img_p, alpha_p, n_p = trt.rasterize_tiled(m2d, con, col, opa, dep, bg, None, h, w, **kw)
     finally:
         bk.binkeys, tr.tiled_forward = orig
     assert int(n) == int(n_p) > 0
     ok = (img - img_p).abs().amax(-1) <= 1e-4
     assert ok.float().mean().item() >= 0.9999
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_tiled_backward_matches_plain(cuda, rng, tile_size):
+    """The back-to-front walk and per-warp reductions against the plain
+    version's suffix products, on the forward kernel's own T and last:
+    both replay the same eligibility test (``csrc/tile_eligibility.cuh``,
+    rounded term by term), so they differ only in summation order. Stated
+    bound: 1e-4 of
+    each column's largest magnitude."""
+    h, w = 256, 320
+    m2d, con, col, opa, dep, rad = _scene(rng, 30000, h, w, cuda)
+    geom, binning, feats = trt._prepare(
+        m2d, con, col, opa, rad, dep, h, w, tile_size, 4, 4, isect_cap=10**7,
+    )
+    basis = trt.tile_pixel_basis(geom, cuda)
+    _, t_fin, last = tr.tiled_forward(feats, binning.tile_offsets, basis)
+    t, p = t_fin.shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g_img = torch.randn((t, p, 3), generator=gen, device=cuda)
+    g_t = torch.randn((t, p), generator=gen, device=cuda)
+    args = (feats, binning.tile_offsets, basis, g_img, g_t, t_fin, last)
+    before = tr.backward_launches
+    got = tr.tiled_backward(*args)
+    want = tr.tiled_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert tr.backward_launches == before + 1
+    scale = want.abs().amax(dim=0)
+    assert (scale[:11] > 0).all() and (got[:, 11:] == 0).all()
+    err = (got - want).abs().amax(dim=0)
+    assert (err[:11] <= 1e-4 * scale[:11]).all(), (err / scale.clamp(min=1e-30)).tolist()
+
+
+def test_segsum_band_matches_plain(cuda, rng):
+    """Rows grouped like the backward's flat-sorted gradient rows (groups of
+    1-16 rows, then one group far longer than LOOK): each row's sum over
+    the rest of its group
+    agrees within 1e-5 of the group's absolute sum (the two versions add in
+    a different order)."""
+    sizes = rng.integers(1, 17, size=40000)
+    g = np.repeat(np.arange(sizes.shape[0]), sizes)
+    g = np.concatenate([g, np.full(3000, sizes.shape[0])]).astype(np.int32)
+    rows = torch.as_tensor(rng.normal(size=(g.shape[0], 16)).astype(np.float32), device=cuda)
+    gt = torch.as_tensor(g, device=cuda)
+    before = seg.launches
+    got = seg.segsum_band(rows, gt)
+    want = seg.segsum_band_plain(rows, gt)
+    mag = seg.segsum_band_plain(rows.abs(), gt)
+    torch.cuda.synchronize()
+    assert seg.launches == before + 1
+    assert ((got - want).abs() <= 1e-5 * mag).all()
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -135,3 +187,10 @@ def test_wrappers_check_their_inputs(cuda):
     big = trt.tile_pixel_basis(trt.image_geometry(64, 64, 64), cuda)
     with pytest.raises(ValueError):
         tr.tiled_forward(torch.zeros((4, 16), device=cuda), offs, big)
+    t = torch.zeros((4, 1024), device=cuda)
+    last = torch.zeros((4, 1024), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tr.tiled_backward(torch.zeros((4, 16), device=cuda), offs, basis,
+                          torch.zeros((4, 3, 1024), device=cuda), t, t, last)
+    with pytest.raises(ValueError):
+        seg.segsum_band(torch.zeros((4, 16), device=cuda), torch.zeros(4, dtype=torch.int64, device=cuda))

@@ -49,7 +49,7 @@ def _jax_tiled(scene, bg=BG, **kw):
 def _torch_tiled(scene, bg=BG, **kw):
     m2d, con, col, opa, dep, rad = (torch.as_tensor(x) for x in scene)
     out = trt.rasterize_tiled(
-        m2d, con, col, opa, dep, torch.as_tensor(bg), H, W, radii=rad,
+        m2d, con, col, opa, dep, torch.as_tensor(bg), None, H, W, radii=rad,
         tile_size=TS, **kw,
     )
     return tuple(x.numpy() for x in out)
@@ -57,7 +57,7 @@ def _torch_tiled(scene, bg=BG, **kw):
 
 def _torch_oracle(scene, bg=BG):
     m2d, con, col, opa, dep, _ = (torch.as_tensor(x) for x in scene)
-    img, alpha = rasterize(m2d, con, col, opa, dep, torch.as_tensor(bg), H, W)
+    img, alpha = rasterize(m2d, con, col, opa, dep, torch.as_tensor(bg), None, H, W)
     return img.numpy(), alpha.numpy()
 
 

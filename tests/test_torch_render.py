@@ -112,7 +112,8 @@ def test_jax_checkpoint_loads_and_renders(rng, tmp_path):
     path = tmp_path / "checkpoints" / "iterations_700.npz"
     jckpt.save_checkpoint(path, jstate, 3, 700)
     assert tckpt.find_checkpoint(tmp_path) == path
-    tstate, sh, step = tckpt.load_checkpoint(path, device="cpu")
+    tstate, sh, step, adam = tckpt.load_checkpoint(path, device="cpu")
+    assert adam is None
     assert (sh, step) == (3, 700)
     np.testing.assert_array_equal(tstate.alive.numpy(), alive)
     w2c, K = _camera(0.7)
@@ -133,15 +134,17 @@ def test_torch_checkpoint_loads_in_jax(rng, tmp_path):
 
 
 def test_checkpoint_with_optimizer_state_loads(rng, tmp_path):
-    """A JAX checkpoint that carries Adam moments loads; they are skipped."""
+    """A JAX checkpoint that carries Adam moments loads with them."""
     from easy_gaussian_splatting_tpu.models.optimizer import init_adam_state
 
     arrays, alive = _arrays(rng)
     jstate = _jax_state(arrays, alive)
     path = tmp_path / "iterations_9.npz"
     jckpt.save_checkpoint(path, jstate, 3, 9, adam=init_adam_state(jstate.params))
-    tstate, _, _ = tckpt.load_checkpoint(path, device="cpu")
+    tstate, _, _, adam = tckpt.load_checkpoint(path, device="cpu")
     np.testing.assert_array_equal(tstate.params.means.numpy(), arrays["means"])
+    assert adam is not None and int(adam.steps["means"]) == 0
+    np.testing.assert_array_equal(adam.mu.sh_rest.numpy(), np.zeros_like(arrays["sh_rest"]))
 
 
 def test_compact_for_inference_keeps_alive_set(rng):
