@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--gaussians 1000000]
 
 Drives ``easy_gaussian_splatting_torch`` (never the JAX package) through
-its offline viewer, the main path of this part of the port:
+its offline viewer, the first main path of the port:
 
 1. device: the card's name, the device count and ``nvidia-smi``'s name and
    power limit; no card is a failure;
@@ -26,7 +26,7 @@ its offline viewer, the main path of this part of the port:
    (CUDA events), its lower bound on this card, launches per frame and
    peak device memory;
 
-and then through its trainer, the main path of this part of the port:
+and then through its trainer, the second:
 
 7. training data: the same 1M-Gaussian scene initialised for training
    (``init_gaussian_state``, SH 3) and four 800x800 ring cameras whose
@@ -42,14 +42,33 @@ and then through its trainer, the main path of this part of the port:
    30; every kernel's launches rise every step, no step is truncated, the
    loss falls before the first event and the checkpoint reloads with its
    Adam state;
-10. numbers: step time, both new kernels' and plain versions' times and
-   bounds, peak device memory, a profile of three steps, then one JSON
-   line of the four kernels. Each main path's counts are zeroed just
-   before it: ``launches`` counts the ``train()`` run of phase 9 and
-   ``launches_served`` the viewer's build and requests of phase 5. ``ms``,
-   ``plain_ms``, ``bound_ms`` and ``max_abs_err`` come from the served
-   800x800 frame for binkeys and tiled_forward, and from the first train
-   step for tiled_backward and segsum_band.
+10. numbers: step time, both backward kernels' and plain versions' times
+   and bounds, peak device memory, a profile of three steps;
+
+and then through the trainer under the other backward reductions
+(``rasterize_tiled.BWD_REDUCE``), the main paths of this part of the port:
+
+11. reductions: for ``band`` (the baseline) and each of ``scan``,
+   ``pallas`` and ``dense``: (a) phase 8's step under it, with its kernels
+   (``segsum_compact`` and ``monotone_expand``; ``group_reduce``) held
+   against their plain versions on that step's inputs, its gradients
+   against the band step's, and under ``dense`` the grid binning against
+   the ``binkeys`` binning; the kernels' times, plain versions', one
+   PyTorch call's (``library_ms``) and bounds; (b) ``train()`` for 12 steps
+   on the first ring camera with a schedule compressed so that one densify
+   event runs, at step 10 (printed): its kernels' launches rise every step,
+   the other reductions' kernels (and under ``dense`` ``binkeys``) never
+   run, no step truncates, the loss is finite and falls before the event;
+   step time, peak device memory and a profile of three steps.
+
+Then one JSON line of the seven kernels. Each main path's counts are
+zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
+for the first four and that of its reduction in phase 11 for the other
+three, ``launches_served`` the viewer's build and requests of phase 5.
+``ms``, ``plain_ms``, ``bound_ms`` and ``max_abs_err`` come from the served
+800x800 frame for binkeys and tiled_forward, and from the first train
+step for the others; ``library_ms`` is null where no one PyTorch call
+computes the function.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; any failed
 phase exits non-zero before it.
@@ -554,9 +573,10 @@ def plain_swaps():
     return stack
 
 
-def check_step_gradients(got, want) -> None:
-    """Each parameter's gradient (and absgrad) from the kernels against the
-    plain versions': relative L2 error at most STEP_GRAD_RTOL."""
+def check_step_gradients(got, want, tol=STEP_GRAD_RTOL, tag="8",
+                         what="kernels vs plain versions") -> None:
+    """Each parameter's gradient (and absgrad) of one step against another's:
+    relative L2 error at most ``tol``."""
     from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES
 
     (g_k, abs_k, ld_k, _), (g_p, abs_p, ld_p, _) = got, want
@@ -564,29 +584,33 @@ def check_step_gradients(got, want) -> None:
     errs = {}
     for name, a, b in pairs:
         errs[name] = float((a - b).norm() / b.norm().clamp(min=1e-30))
-    log("[8] whole step, kernels vs plain versions: loss " + f"{float(ld_k['total']):.6f} vs "
+    log(f"[{tag}] whole step, {what}: loss " + f"{float(ld_k['total']):.6f} vs "
         f"{float(ld_p['total']):.6f}; relative L2 gradient error "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-    check(all(v <= STEP_GRAD_RTOL for v in errs.values()),
-          "whole-step gradients of the kernels disagree with the plain versions'")
+    check(all(v <= tol for v in errs.values()), f"whole-step gradients disagree: {what}")
 
 
 # ------------------------------------------------------------------ phase 9
 def counts():
     from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+    from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
     from easy_gaussian_splatting_torch.ops.kernels import segments as seg
     from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
 
     return {"binkeys": bk.launches, "tiled_forward": tr.launches,
-            "tiled_backward": tr.backward_launches, "segsum_band": seg.launches}
+            "tiled_backward": tr.backward_launches, "segsum_band": seg.launches,
+            "segsum_compact": seg.compact_launches, "monotone_expand": seg.expand_launches,
+            "group_reduce": gr.launches}
 
 
 def zero_counts() -> None:
     from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+    from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
     from easy_gaussian_splatting_torch.ops.kernels import segments as seg
     from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
 
     bk.launches = tr.launches = tr.backward_launches = seg.launches = 0
+    seg.compact_launches = seg.expand_launches = gr.launches = 0
 
 
 PER_STEP = {"binkeys": 2, "tiled_forward": 1, "tiled_backward": 1, "segsum_band": 1}
@@ -732,6 +756,285 @@ def segsum_bound(args):
     window_sum = short * (short + 1) / 2 + (sizes - short) * LOOK  # sum of min(k, LOOK)
     adds = float((window_sum - sizes).sum()) * rows.shape[1]
     return bound_ms(rows.numel() * 8 + g.numel() * 4, adds)
+
+
+# ----------------------------------------------------------------- phase 11
+REDUCTIONS = ("scan", "pallas", "dense")
+STRATEGY_RTOL = 1e-4  # whole-step gradients of a reduction vs band, relative L2
+# configs/nerf_synthetic.yaml with a schedule compressed so that one densify
+# event runs, at step 10, and no opacity reset or checkpoint
+REDUCE_SCHEDULE = dict(
+    total_iterations=12, sh_degree_interval=0, refine_start=0, refine_every=10,
+    reset_opacities_every=1000, save_model_iterations=[], save_optimizer_state=False,
+    data_device_cache=False, log_every=1, dataloader_workers=2,
+)
+REDUCE_TIMED = range(4, 9)  # steps 5-9: the five before the event
+# each reduction's own kernels and their launches per step ("dense" over two
+# populations: one group_reduce each)
+REDUCE_KERNELS = {
+    "band": {"segsum_band": 1}, "scan": {},
+    "pallas": {"segsum_compact": 1, "monotone_expand": 1}, "dense": {"group_reduce": 2},
+}
+
+
+def check_group_reduce(calls) -> float:
+    """Kernel against plain version on every recorded call, bit for bit (both
+    add each group's rows in row order)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
+
+    err = 0.0
+    for (x, b), _ in calls:
+        got, want = gr.group_reduce(x, b), gr.group_reduce_plain(x, b)
+        err = max(err, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"group_reduce (b={b}) differs from the plain version")
+    log("[11] group_reduce: equal to the plain version on " + ", ".join(
+        f"{x.shape[0]} rows in groups of {b}" for (x, b), _ in calls))
+    return err
+
+
+def check_segsum_compact(call) -> float:
+    """Kernel against plain version at every written group: within SEG_RTOL
+    of the group's sum of magnitudes (the plain version's ``index_add_``
+    adds in another order on the card)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+
+    (rows, g), kw = call
+    mg = kw["max_groups"]
+    got = seg.segsum_compact(rows, g, mg)
+    want = seg.segsum_compact_plain(rows, g, mg)
+    mag = seg.segsum_compact_plain(rows.abs(), g, mg)
+    torch.cuda.synchronize()
+    k = min(int(seg.group_slots(g)[-1]) + 1, mg)
+    err = (got[:k] - want[:k]).abs()
+    ok = err <= SEG_RTOL * mag[:k]
+    log(f"[11] segsum_compact: {rows.shape[0]} rows, {k} groups written (max_groups {mg}); "
+        f"{int((~ok).sum())} values outside {SEG_RTOL} of the group's |sum|, max |diff| "
+        f"{float(err.max()):.3e}")
+    check(bool(ok.all()), "segsum_compact disagrees with the plain version")
+    return float(err.max())
+
+
+def check_monotone_expand(call) -> float:
+    """Kernel against plain version, bit for bit (both gather)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+
+    args, _ = call
+    got, want = seg.monotone_expand(*args), seg.monotone_expand_plain(*args)
+    check(torch.equal(got, want), "monotone_expand differs from the plain version")
+    log(f"[11] monotone_expand: equal to the plain version on {args[1].shape[0]} rows from "
+        f"{args[0].shape[0]}")
+    return float((got - want).abs().max())
+
+
+def check_grid_binning(call):
+    """The grid binning of a recorded call against the ``binkeys`` binning of
+    the same call: the live prefix, offsets and counts must be equal, and
+    the dense ids a permutation of [0, D). Returns (live entries, D)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops import rasterize_tiled as trt
+
+    args, kwargs = call
+    with swapped(trt, "BWD_REDUCE", "dense"):
+        grid = trt.bin_gaussians(*args, **kwargs)
+    with swapped(trt, "BWD_REDUCE", "band"):
+        keys = trt.bin_gaussians(*args, **kwargs)
+    n = int(keys.num_isects)
+    check(int(grid.num_isects) == n, "grid and binkeys binnings count different intersections")
+    for name in ("isect_flat", "isect_tile"):
+        check(torch.equal(getattr(grid, name)[:n], getattr(keys, name)[:n]),
+              f"grid and binkeys binnings differ in {name}")
+    for name in ("tile_offsets", "counts"):
+        check(torch.equal(getattr(grid, name), getattr(keys, name)),
+              f"grid and binkeys binnings differ in {name}")
+    d = grid.dense
+    check(torch.equal(torch.sort(d).values, torch.arange(d.shape[0], device=d.device)),
+          "the dense ids are not a permutation of the sort domain")
+    log(f"[11] dense: grid binning equal to the binkeys binning on {n} live entries "
+        f"(isect_flat, isect_tile, tile_offsets, counts); dense ids a permutation of D = {d.shape[0]}")
+    return n, d.shape[0]
+
+
+def group_reduce_bound(calls):
+    """Every input row read once, every group sum written once; b - 1 adds
+    per group and column."""
+    nbytes = ops = 0
+    for (x, b), _ in calls:
+        groups = x.shape[0] // b
+        nbytes += x.numel() * 4 + groups * x.shape[1] * 4
+        ops += (b - 1) * groups * x.shape[1]
+    return bound_ms(nbytes, ops)
+
+
+def segsum_compact_bound(call):
+    """Rows and ids read once, the written groups' sums written once; one add
+    per row past its group's first, per column."""
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+
+    (rows, g), kw = call
+    n_groups = int(seg.group_slots(g)[-1]) + 1
+    written = min(n_groups, kw["max_groups"])
+    nbytes = rows.numel() * 4 + g.numel() * 4 + written * rows.shape[1] * 4
+    return bound_ms(nbytes, (rows.shape[0] - n_groups) * rows.shape[1])
+
+
+def monotone_expand_bound(call):
+    """Ranks and flags read once, each present row's input row read once,
+    every output row written once; no arithmetic."""
+    (compact, rank, present), _ = call
+    n_read = int(present.sum())
+    c = rank.shape[0]
+    return bound_ms(c * 5 + n_read * compact.shape[1] * 4 + c * compact.shape[1] * 4, 0)
+
+
+def time_reduction_kernels(name, rec):
+    """(ms, plain ms, library ms, bound ms, bound by) per kernel of the
+    reduction, on the calls recorded from the real step: kernels over 20
+    launches, plain versions over 3, and one PyTorch call computing the
+    same function (or nearly) as the yardstick."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+
+    out = {}
+    if name == "dense":
+        calls = rec["group_reduce"]
+        ms = sum(cuda_ms(lambda x=x, b=b: gr.group_reduce(x, b), 20) for (x, b), _ in calls)
+        plain = sum(cuda_ms(lambda x=x, b=b: gr.group_reduce_plain(x, b), 3, 1) for (x, b), _ in calls)
+        lib = sum(cuda_ms(lambda x=x, b=b: x.view(-1, b, x.shape[1]).sum(1), 20) for (x, b), _ in calls)
+        out["group_reduce"] = (ms, plain, lib) + group_reduce_bound(calls)
+    elif name == "pallas":
+        call = rec["segsum_compact"][0]
+        (rows, g), kw = call
+        mg = kw["max_groups"]
+        lengths = torch.unique_consecutive(g, return_counts=True)[1]
+        out["segsum_compact"] = (
+            cuda_ms(lambda: seg.segsum_compact(rows, g, mg), 20),
+            cuda_ms(lambda: seg.segsum_compact_plain(rows, g, mg), 3, 1),
+            cuda_ms(lambda: torch.segment_reduce(rows, "sum", lengths=lengths), 20),
+        ) + segsum_compact_bound(call)
+        call = rec["monotone_expand"][0]
+        (compact, rank, present), _ = call
+        rank64 = rank.to(torch.int64)
+        out["monotone_expand"] = (
+            cuda_ms(lambda: seg.monotone_expand(compact, rank, present), 20),
+            cuda_ms(lambda: seg.monotone_expand_plain(compact, rank, present), 3, 1),
+            cuda_ms(lambda: compact.index_select(0, rank64), 20),
+        ) + monotone_expand_bound(call)
+    for k, (ms, plain, lib, bound, by) in out.items():
+        log(f"[11] {k}: {ms:.4f} ms/step, plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({by})")
+    return out
+
+
+def reduction_step(name, grad_fn, band_step, step_args, step_kw):
+    """Phase 11 (a): one real step under reduction ``name`` with its kernels
+    recorded and checked against their plain versions, and its gradients
+    against the band step's. Returns (max abs errors, recorded calls)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops import rasterize_tiled as trt
+    from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(swapped(trt, "BWD_REDUCE", name))
+        rec = {k: stack.enter_context(recording(mod, k)) for mod, k in (
+            (seg, "segsum_band"), (seg, "segsum_compact"), (seg, "monotone_expand"),
+            (gr, "group_reduce"), (trt, "bin_gaussians"))}
+        got = grad_fn(*step_args, **step_kw)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    pattern = {k: len(v) for k, v in rec.items() if k != "bin_gaussians"}
+    want = {"segsum_band": 0, "segsum_compact": 0, "monotone_expand": 0, "group_reduce": 0}
+    want.update(REDUCE_KERNELS[name])
+    log(f"[11] {name}: one step's kernel calls {pattern}, peak device memory "
+        f"{peak / 2**20:.0f} MiB")
+    check(pattern == want, f"{name}: unexpected kernel call pattern {pattern}, want {want}")
+    check_step_gradients(got, band_step, STRATEGY_RTOL, "11", f"{name} vs band")
+    errs = {}
+    if name == "pallas":
+        errs["segsum_compact"] = check_segsum_compact(rec["segsum_compact"][0])
+        errs["monotone_expand"] = check_monotone_expand(rec["monotone_expand"][0])
+    elif name == "dense":
+        errs["group_reduce"] = check_group_reduce(rec["group_reduce"])
+        check_grid_binning(rec["bin_gaussians"][0])
+    del got
+    return errs, rec, peak
+
+
+def train_reduction(name, xyzs, rgbs, frames, device, seed):
+    """Phase 11 (b): ``train()`` under reduction ``name`` with the compressed
+    schedule; each of its kernels' launches rise every step, the other
+    reductions' kernels never, no step truncates, the loss is finite and
+    falls before the densify event. Returns (launch counts, step ms, peak
+    device memory)."""
+    import random
+
+    import torch
+
+    from easy_gaussian_splatting_torch.ops import rasterize_tiled as trt
+    from easy_gaussian_splatting_torch.training import trainer as ttrainer
+    from easy_gaussian_splatting_torch.training.config import load_config
+
+    cfg = load_config(REPO / "configs" / "nerf_synthetic.yaml", **REDUCE_SCHEDULE)
+    random.seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with swapped(trt, "BWD_REDUCE", name):
+        # one camera: every step sees the same view, so the loss of each
+        # reduction falls step by step and the runs are comparable (over
+        # the four ring views, 9 steps of learning move the loss less than
+        # the views differ)
+        loop, rec = train_recorded(cfg, RingScene(xyzs, rgbs, frames[:1], cfg.total_iterations), device)
+    total = counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = rec["steps"]
+    check(len(steps) == cfg.total_iterations == loop.step, f"{name}: trained {len(steps)} steps")
+    check(rec["densify"] == 1 and rec["reset"] == 0,
+          f"{name}: {rec['densify']} densify events and {rec['reset']} resets ran, want 1 and 0")
+    own = dict(REDUCE_KERNELS[name], tiled_forward=1, tiled_backward=1)
+    if name != "dense":
+        own["binkeys"] = 2
+    never = [k for k in ("segsum_band", "segsum_compact", "monotone_expand", "group_reduce")
+             if k not in own] + (["binkeys"] if name == "dense" else [])
+    short = [i + 1 for i, s in enumerate(steps) if any(s["launches"][k] < n for k, n in own.items())]
+    check(not short, f"{name}: a kernel was launched fewer times than its per-step count at steps {short}")
+    check(all(total[k] == 0 for k in never), f"{name}: another path's kernel ran: {total}")
+    truncated = [i + 1 for i, s in enumerate(steps) if s["isects"] > s["cap"]]
+    check(not truncated, f"{name}: truncated steps {truncated}")
+    losses = [s["loss"] for s in steps]
+    check(all(math.isfinite(x) for x in losses), f"{name}: a loss is not finite")
+    early, later = float(np.mean(losses[:4])), float(np.mean(losses[5:9]))
+    step_ms = [steps[i]["ms"] for i in REDUCE_TIMED]
+    log(f"[11] {name} train(): {loop.step} steps, {rec['densify']} densify event, "
+        f"{loop.model.num_alive()} gaussians at the end; launches "
+        + ", ".join(f"{k} {v}" for k, v in total.items() if v)
+        + f"; loss mean of steps 1-4 {early:.5f}, of steps 6-9 {later:.5f} (per step "
+        + " ".join(f"{x:.4f}" for x in losses) + "); step ms (steps 5-9) "
+        + " ".join(f"{x:.2f}" for x in step_ms) + f", median {float(np.median(step_ms)):.2f}; "
+        f"peak device memory {peak / 2**20:.0f} MiB")
+    check(later < early, f"{name}: the loss did not fall before the densify event")
+    # where a step's time goes, on the state after the run (autotuned config)
+    with swapped(trt, "BWD_REDUCE", name):
+        step_fn = ttrainer.make_train_step(cfg, ttrainer.get_render_fn(cfg))
+        f0 = [torch.as_tensor(frames[0][k], device=device) for k in ("w2c", "K", "image", "mask")]
+        profile_device(
+            lambda: step_fn(loop.model, loop.adam, *f0, 1e-4, True, False, False,
+                            height=800, width=800, sh_degree=3),
+            3, "step", f"11 {name}", top=8,
+        )
+    return total, float(np.median(step_ms)), peak
 
 
 # ------------------------------------------------------------------ main
@@ -952,7 +1255,8 @@ def run(args) -> dict:
     with plain_swaps():
         want = grad_fn(state0, w2c0, K0, img0, mask0, **step_kw)
     check_step_gradients(got, want)
-    del got, want
+    band_step = got  # phase 11 holds the other reductions against it
+    del want
 
     # ---- phase 9: train
     random.seed(args.seed)
@@ -998,6 +1302,32 @@ def run(args) -> dict:
         lambda: step_fn(loop.model, loop.adam, *fp_t, 1e-4, True, False, False, **step_kw),
         3, "step", "10",
     )
+    del loop, step_fn
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: the other backward reductions, each checked on the
+    # inputs of phase 8's step, then driven through a short train() run
+    # (band first, as the baseline of the same schedule)
+    log("[11] train() config: configs/nerf_synthetic.yaml with " + json.dumps(REDUCE_SCHEDULE))
+    runs = {}
+    reduce_counts, reduce_errs, reduce_numbers = {}, {}, {}
+    for name in ("band",) + REDUCTIONS:
+        errs, rec, step_peak = reduction_step(
+            name, grad_fn, band_step, (state0, w2c0, K0, img0, mask0), step_kw)
+        reduce_errs.update(errs)
+        reduce_numbers.update(time_reduction_kernels(name, rec))
+        del rec
+        torch.cuda.empty_cache()
+        runs[name] = train_reduction(name, xyzs, rgbs, frames, device, args.seed) + (step_peak,)
+        reduce_counts.update({k: runs[name][0][k] for k in REDUCE_KERNELS[name]})
+    log(f"[11] card: {card}")
+    for name, (total, ms, peak, step_peak) in runs.items():
+        per_step = ", ".join(f"{k} {total[k] / REDUCE_SCHEDULE['total_iterations']:g}"
+                             for k in REDUCE_KERNELS[name])
+        log(f"[11] {name}: train step median (steps 5-9) {ms:.2f} ms; peak device memory in "
+            f"train() {peak / 2**20:.0f} MiB, in one phase-8 step {step_peak / 2**20:.0f} MiB; "
+            f"own kernels per step: {per_step or 'none'}")
+
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
         "tiled_forward": ("tile_forward.cu", "tile_raster.py:355", fw_err, fw_ms, fw_plain,
@@ -1014,6 +1344,17 @@ def run(args) -> dict:
              ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
         for name, (src, tpu, err, ms, plain, bound, by) in measured.items()
     ]
+    sources = {"segsum_compact": ("segsum_compact.cu", "segments.py:181"),
+               "monotone_expand": ("monotone_expand.cu", "segments.py:363"),
+               "group_reduce": ("group_reduce.cu", "group_reduce.py:28")}
+    for name, (src, tpu) in sources.items():
+        ms, plain, lib, bound, by = reduce_numbers[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"easy_gaussian_splatting_torch/csrc/{src}",
+            replaces=f"easy_gaussian_splatting_tpu/ops/pallas/{tpu}",
+            launches=reduce_counts[name], launches_served=served_all[name],
+            max_abs_err=reduce_errs[name], ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}

@@ -4,9 +4,15 @@ versions, one module per kernel:
 - ``binkeys``      binning keys + exact ellipse/tile test (csrc/binkeys.cu)
 - ``tile_raster``  per-tile forward compositing (csrc/tile_forward.cu) and
                    its backward (csrc/tile_backward.cu)
-- ``segments``     segmented suffix sums of gradient rows (csrc/segsum_band.cu)
+- ``segments``     sorted-segment reductions of gradient rows: segmented
+                   suffix sums (csrc/segsum_band.cu), compacted group sums
+                   (csrc/segsum_compact.cu) and their expansion to one row
+                   per Gaussian (csrc/monotone_expand.cu)
+- ``group_reduce`` fixed-stride group sums (csrc/group_reduce.cu)
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel (or raises) for a CUDA tensor, and counts its launches in a module
-integer (``launches``; ``backward_launches`` for ``tiled_backward``).
+integer (``launches``; ``backward_launches`` for ``tiled_backward``,
+``compact_launches`` for ``segsum_compact``, ``expand_launches`` for
+``monotone_expand``).
 """

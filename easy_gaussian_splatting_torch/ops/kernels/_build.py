@@ -36,6 +36,9 @@ EXTRA_FLAGS = {
     "tile_forward": (),
     "tile_backward": (),
     "segsum_band": (),
+    "segsum_compact": (),
+    "monotone_expand": (),
+    "group_reduce": (),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

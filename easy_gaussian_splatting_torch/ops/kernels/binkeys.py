@@ -28,21 +28,14 @@ IGEO_ROWS = ("tx0", "ty0", "w", "count", "rank", "orig", "livebase")
 launches = 0
 
 
-def binkeys_plain(
-    fgeo: torch.Tensor, igeo: torch.Tensor, *, n_keys: int, m: int, ts: int,
-    tiles_x: int, num_tiles: int, rank_bits: int, sentinel_flat: int,
-):
-    """The kernel's function as a [m, n] PyTorch grid, in the expression
-    order of the JAX package's XLA grid (``rasterize_tiled.py:438-498``)."""
-    mx, my, a, b, cc, s_max = fgeo
-    tx0, ty0, w, count, rank, orig, livebase = igeo
-    j = torch.arange(m, dtype=torch.int32, device=fgeo.device)[:, None]
-    w_safe = torch.clamp(w, min=1)[None, :]
-    jy = torch.div(j, w_safe, rounding_mode="floor")
-    jx = j - jy * w_safe
-
-    x0 = ((tx0 + jx) * ts).to(torch.float32) - mx
-    y0 = ((ty0 + jy) * ts).to(torch.float32) - my
+def tile_sigma_min(x0, y0, ts: int, a, b, cc) -> torch.Tensor:
+    """Minimum of the quadratic form sigma(d) = a/2 dx^2 + c/2 dy^2 + b dx dy
+    over each tile's pixel rectangle [x0, x0 + ts] x [y0, y0 + ts] (corners
+    relative to the mean): 0 when the mean lies inside, else the least of
+    the four clamped edge minima. Shared by the plain ``binkeys`` and the
+    grid binning, in the JAX package's term order
+    (``rasterize_tiled.py:460-488``), so both binnings drop the same cells
+    and the kernel, built without FMA contraction, rounds the same way."""
     x1 = x0 + ts
     y1 = y0 + ts
     a_safe = torch.clamp(a, min=1e-12)
@@ -62,7 +55,25 @@ def binkeys_plain(
         torch.minimum(edge_y(y0), edge_y(y1)),
     )
     inside = (x0 <= 0.0) & (0.0 <= x1) & (y0 <= 0.0) & (0.0 <= y1)
-    s_min = torch.where(inside, torch.zeros_like(s_edge), s_edge)
+    return torch.where(inside, torch.zeros_like(s_edge), s_edge)
+
+
+def binkeys_plain(
+    fgeo: torch.Tensor, igeo: torch.Tensor, *, n_keys: int, m: int, ts: int,
+    tiles_x: int, num_tiles: int, rank_bits: int, sentinel_flat: int,
+):
+    """The kernel's function as a [m, n] PyTorch grid, in the expression
+    order of the JAX package's XLA grid (``rasterize_tiled.py:438-498``)."""
+    mx, my, a, b, cc, s_max = fgeo
+    tx0, ty0, w, count, rank, orig, livebase = igeo
+    j = torch.arange(m, dtype=torch.int32, device=fgeo.device)[:, None]
+    w_safe = torch.clamp(w, min=1)[None, :]
+    jy = torch.div(j, w_safe, rounding_mode="floor")
+    jx = j - jy * w_safe
+
+    x0 = ((tx0 + jx) * ts).to(torch.float32) - mx
+    y0 = ((ty0 + jy) * ts).to(torch.float32) - my
+    s_min = tile_sigma_min(x0, y0, ts, a, b, cc)
     live = (j < count) & (s_min <= s_max)
 
     count_full = live.sum(dim=0, dtype=torch.int32)

@@ -1,40 +1,63 @@
 """Tiled rasterization: binning + per-tile depth-ordered compositing;
-counterpart of the forward half of
-``easy_gaussian_splatting_tpu/ops/rasterize_tiled.py``.
+counterpart of ``easy_gaussian_splatting_tpu/ops/rasterize_tiled.py``.
 
 - Each Gaussian's depth RANK (a double argsort) rides in the sort key, so
   every intersection addresses the caller's arrays by original index.
 - Binning is two-population: population A holds every Gaussian's first
   ``small_budget`` window cells, population B the ``ov_capacity`` Gaussians
   whose window is larger, with all ``max_tiles_w * max_tiles_h`` cells.
-  The ``binkeys`` kernel builds each population's keys with the exact
-  ellipse/tile test; one sort of the int64 keys ``(tile << rank_bits) |
-  rank`` orders intersections tile-major, depth-minor, and
-  ``searchsorted`` gives the CSR ``tile_offsets``.
+  Each population's keys come from the exact ellipse/tile test; one sort
+  of the int64 keys ``(tile << rank_bits) | rank`` orders intersections
+  tile-major, depth-minor, and ``searchsorted`` gives the CSR
+  ``tile_offsets``.
 - Per-intersection features are packed once, with the Gaussian's
   quadratic form as a tile-local polynomial, and the ``tiled_forward``
   kernel composites each tile.
 - The gradient is a ``torch.autograd.Function`` (the JAX package's
   custom-VJP core): the ``tiled_backward`` kernel writes one gradient row
-  per intersection, a stable sort by flat duplicate id groups each
-  Gaussian's rows, the ``segsum_band`` kernel sums each group onto its
-  first row, and one gather picks the group starts. Its absgrad side
-  channel is the gradient of ``absgrad_dummy``.
+  per intersection, and a reduction sums each Gaussian's rows. Its absgrad
+  side channel is the gradient of ``absgrad_dummy``.
+
+Two module switches, read at import from the environment and checked at
+first use (an unknown value raises), select the JAX package's variants;
+values and defaults are the JAX package's (``EGS_TPU_BWD_REDUCE``,
+``EGS_TPU_BINNING``), the variable names the port's own:
+
+``BWD_REDUCE`` (``EGS_TORCH_BWD_REDUCE``), the backward reduction:
+  - ``band`` (default): a stable sort by flat duplicate id groups each
+    Gaussian's rows, the ``segsum_band`` kernel sums each group onto its
+    first row, one gather picks the group starts. Windows of more than
+    ``segments.LOOK`` cells fall back to ``scan``, as in JAX.
+  - ``scan``: the same sort and gather around a log-step segmented suffix
+    scan in plain tensor ops (the JAX package's XLA scan).
+  - ``pallas``: the same sort, then the ``segsum_compact`` kernel (one row
+    per present Gaussian) and the ``monotone_expand`` kernel (back to one
+    row per Gaussian).
+  - ``dense``: binning carries each entry's dense duplicate-slot id through
+    its sort; the backward inverts that permutation, gathers the rows into
+    the dense grid and sums each Gaussian's fixed-stride run with the
+    ``group_reduce`` kernel. Forces the grid binning.
+``BINNING_IMPL`` (``EGS_TORCH_BINNING``), the binning grid:
+  - ``pallas`` (default): the hand-written ``binkeys`` CUDA kernel builds
+    each population's keys;
+  - ``xla``: the ``[C, M]`` duplicate grid in plain tensor ops (the JAX
+    package's XLA grid), with the same exact test in the same term order.
 
 Gaussians covering more than ``max_tiles_w * max_tiles_h`` tiles are
-clamped to a window centered on their tile, as in the JAX package. Of the
-JAX package's backward reductions only ``band`` (its default) is ported;
-stripe rendering comes with the multi-device part of the port.
+clamped to a window centered on their tile, as in the JAX package. Stripe
+rendering comes with the multi-device part of the port.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple
 
 import torch
 
 from .kernels import binkeys as binkeys_kernel
+from .kernels import group_reduce as group_reduce_kernel
 from .kernels import segments, tile_raster
 from .projection import CameraIntrinsics, project_gaussians
 from .rasterize_ref import ALPHA_THRESH
@@ -54,6 +77,29 @@ ISECT_SLOT_BYTES = 320
 
 SMALL_BUDGET = 9
 BUDGET_CANDIDATES = (2, 4, 9)
+
+# backward reduction and binning grid (see the module docstring); tests
+# switch them by setting the attribute
+BWD_REDUCE = os.environ.get("EGS_TORCH_BWD_REDUCE", "band")
+BINNING_IMPL = os.environ.get("EGS_TORCH_BINNING", "pallas")
+BWD_REDUCE_CHOICES = ("band", "scan", "pallas", "dense")
+BINNING_CHOICES = ("pallas", "xla")
+
+
+def _switch(name: str, value: str, choices) -> str:
+    if value not in choices:
+        raise ValueError(f"{name}={value!r}: expected one of {', '.join(choices)}")
+    return value
+
+
+def _bwd_reduce() -> str:
+    """The backward reduction ``BWD_REDUCE`` names; raises on an unknown value."""
+    return _switch("BWD_REDUCE", BWD_REDUCE, BWD_REDUCE_CHOICES)
+
+
+def _binning_impl() -> str:
+    """The binning grid ``BINNING_IMPL`` names; raises on an unknown value."""
+    return _switch("BINNING_IMPL", BINNING_IMPL, BINNING_CHOICES)
 
 
 def max_isect_cap(hbm_budget_mb: float) -> int:
@@ -99,6 +145,15 @@ class Binning(NamedTuple):
     counts: torch.Tensor  # [C] live duplicates per gaussian
     num_overflow: torch.Tensor  # [] i32: gaussians needing > small_budget cells
     n_gt: torch.Tensor  # [len(BUDGET_CANDIDATES)] i32: windows above each budget
+    # the dense reduction's side channel (grid binning only): the sort
+    # domain is a permutation of dense duplicate slots (population A
+    # c*b_small + j, population B C*b_small + s*M + j), so the slot id
+    # carried through the sort lets the backward move rows into a grid
+    # where each Gaussian's rows sit at a fixed stride
+    dense: torch.Tensor | None = None  # [D] i64 dense slot per sorted entry
+    # (under BWD_REDUCE == "dense"; full sort domain, never truncated)
+    in_ov: torch.Tensor | None = None  # [C] bool: gaussian is in population B
+    ov_rank: torch.Tensor | None = None  # [C] i32 its B slot (where in_ov)
 
 
 def _s_max(opacities: torch.Tensor) -> torch.Tensor:
@@ -129,6 +184,75 @@ def binning_extents(
     return torch.stack([rx, ry], dim=1)
 
 
+def _grid_keys(live, tiles, ranks, rank_bits: int, num_tiles: int) -> torch.Tensor:
+    """int64 sort keys ``(tile << rank_bits) | rank``, tile ``num_tiles`` where
+    dead (the ``binkeys`` kernel's encoding)."""
+    t = torch.where(live, tiles, torch.full_like(tiles, num_tiles)).to(torch.int64)
+    return (t << rank_bits) | ranks.to(torch.int64)[:, None]
+
+
+def _bin_grid(
+    *, c, m, ts, tx_n, num_tiles, b_small, ov_capacity, two_pop, rank_bits,
+    want_dense, rank, mx, my, tx0, ty0, w, count, in_ov, ov_rank, safe_id, slot_valid,
+    conics, opacities,
+):
+    """The JAX package's ``[C, M]`` duplicate grid (``rasterize_tiled.py:
+    438-616``) in plain tensor ops: window cells, the exact ellipse/tile test
+    (the plain ``binkeys``' own, so both binnings drop the same cells), the
+    two-population split and the dense slot ids. Returns the sort domain's
+    keys, flats and dense ids (None unless ``want_dense``), the counts, and
+    ``in_ov``/``ov_rank`` (None for one population)."""
+    device = mx.device
+    j = torch.arange(m, dtype=torch.int32, device=device)[None, :]  # [1, M]
+    w_safe = torch.clamp(w, min=1)[:, None]
+    jy = torch.div(j, w_safe, rounding_mode="floor")
+    jx = j - jy * w_safe
+    tile = (ty0[:, None] + jy) * tx_n + tx0[:, None] + jx  # [C, M]
+    x0 = ((tx0[:, None] + jx) * ts).to(torch.float32) - mx[:, None]
+    y0 = ((ty0[:, None] + jy) * ts).to(torch.float32) - my[:, None]
+    s_min = binkeys_kernel.tile_sigma_min(
+        x0, y0, ts, conics[:, 0:1], conics[:, 1:2], conics[:, 2:3]
+    )
+    # count is 0 for invalid gaussians, so this also tests validity
+    live = (j < count[:, None]) & (s_min <= _s_max(opacities)[:, None])
+    del x0, y0, s_min
+    arange_c = torch.arange(c, dtype=torch.int32, device=device)
+    base_flat = arange_c[:, None] * m + j  # [C, M] flat id orig*M + j
+    sentinel = torch.full((), c * m, dtype=torch.int32, device=device)
+    if not two_pop:
+        counts = live.sum(dim=1, dtype=torch.int32)
+        keys = _grid_keys(live, tile, rank, rank_bits, num_tiles).reshape(-1)
+        flats = torch.where(live, base_flat, sentinel).reshape(-1)
+        dense = base_flat.to(torch.int64).reshape(-1) if want_dense else None
+        return keys, flats, dense, counts, None, None
+
+    # A: [C, b_small], every gaussian's first cells; B: [ov_capacity, M],
+    # the big-window gaussians compacted in index order, with all cells
+    live_adj = live & (in_ov[:, None] | (j < b_small))
+    counts = live_adj.sum(dim=1, dtype=torch.int32)
+    live_a = live_adj[:, :b_small] & ~in_ov[:, None]
+    live_b = live_adj[safe_id] & slot_valid[:, None]
+    keys = torch.cat([
+        _grid_keys(live_a, tile[:, :b_small], rank, rank_bits, num_tiles).reshape(-1),
+        _grid_keys(live_b, tile[safe_id], rank[safe_id], rank_bits, num_tiles).reshape(-1),
+    ])
+    flats = torch.cat([
+        torch.where(live_a, base_flat[:, :b_small], sentinel).reshape(-1),
+        torch.where(live_b, base_flat[safe_id], sentinel).reshape(-1),
+    ])
+    dense = None
+    if want_dense:
+        # A slots c*b_small + j, B slots C*b_small + s*M + j: a permutation
+        # of [0, D) whatever is live (dead entries keep their slot)
+        jj = torch.arange(m, dtype=torch.int64, device=device)[None, :]
+        slots_b = torch.arange(ov_capacity, dtype=torch.int64, device=device)[:, None]
+        dense = torch.cat([
+            (arange_c.to(torch.int64)[:, None] * b_small + jj[:, :b_small]).reshape(-1),
+            (c * b_small + slots_b * m + jj).reshape(-1),
+        ])
+    return keys, flats, dense, counts, in_ov, ov_rank
+
+
 def bin_gaussians(
     means2d: torch.Tensor,  # [C, 2]
     extents: torch.Tensor,  # [C, 2] per-axis half-widths, or [C] radii
@@ -143,6 +267,11 @@ def bin_gaussians(
     height: int | None = None,  # image rows: gaussians whose support starts
     # at or below this row are not binned (the tile grid's padding rows)
 ) -> Binning:
+    """Binning through the ``binkeys`` kernel, or through the ``[C, M]``
+    grid when ``BINNING_IMPL`` is ``xla`` or ``BWD_REDUCE`` is ``dense``
+    (whose side channel only the grid carries), as in the JAX package."""
+    want_dense = _bwd_reduce() == "dense"
+    use_grid = _binning_impl() == "xla" or want_dense
     device = means2d.device
     c = means2d.shape[0]
     ts = geom.tile_size
@@ -196,42 +325,33 @@ def bin_gaussians(
     two_pop = m > b_small and ov_capacity > 0
 
     flag_i = flag.to(torch.int32)
-    in_ov = flag & ((torch.cumsum(flag_i, 0) - flag_i) < ov_capacity)
-    arange_c = torch.arange(c, dtype=torch.int32, device=device)
-    fgeo = torch.stack(
-        [mx, my, conics[:, 0], conics[:, 1], conics[:, 2], _s_max(opacities)]
-    ).contiguous()
-    ints = [tx0, ty0, w, count, rank.to(torch.int32), arange_c]
-    kw = dict(
-        m=m, ts=ts, tiles_x=tx_n, num_tiles=num_tiles, rank_bits=rank_bits,
-        sentinel_flat=c * m,
+    ov_rank = torch.cumsum(flag_i, 0, dtype=torch.int32) - flag_i
+    in_ov = flag & (ov_rank < ov_capacity)
+    # population B: the overflow gaussians, compacted in index order
+    ov_id = torch.sort(torch.where(in_ov, torch.arange(c, device=device), c)).values[:ov_capacity]
+    slot_valid = ov_id < c
+    safe_id = torch.clamp(ov_id, max=c - 1)
+    pops = dict(
+        c=c, m=m, ts=ts, tx_n=tx_n, num_tiles=num_tiles, b_small=b_small,
+        two_pop=two_pop, rank_bits=rank_bits, rank=rank, mx=mx, my=my, tx0=tx0,
+        ty0=ty0, w=w, count=count, in_ov=in_ov, safe_id=safe_id, slot_valid=slot_valid,
+        conics=conics, opacities=opacities,
     )
-    livebase_a = valid & ~in_ov if two_pop else valid
-    igeo_a = torch.stack(ints + [livebase_a.to(torch.int32)])
-    keys_a, flats_a, cnt_small, cnt_full = binkeys_kernel.binkeys(
-        fgeo, igeo_a, n_keys=b_small if two_pop else m, **kw
-    )
-    if two_pop:
-        # population B: the overflow gaussians, compacted in index order
-        ov_id = torch.sort(torch.where(in_ov, arange_c, c)).values[:ov_capacity]
-        slot_valid = ov_id < c
-        safe_id = torch.clamp(ov_id, max=c - 1).to(torch.int64)
-        igeo_b = torch.stack(
-            [x[safe_id] for x in ints] + [slot_valid.to(torch.int32)]
+    dense = None
+    if use_grid:
+        keys_dom, flats_dom, dense_dom, counts, in_ov_out, ov_rank_out = _bin_grid(
+            ov_capacity=ov_capacity, want_dense=want_dense, ov_rank=ov_rank, **pops
         )
-        keys_b, flats_b, _, _ = binkeys_kernel.binkeys(
-            fgeo[:, safe_id].contiguous(), igeo_b, n_keys=m, **kw
-        )
-        counts = torch.where(in_ov, cnt_full, cnt_small)
-        keys_dom = torch.cat([keys_a.reshape(-1), keys_b.reshape(-1)])
-        flats_dom = torch.cat([flats_a.reshape(-1), flats_b.reshape(-1)])
     else:
-        counts = cnt_small
-        keys_dom, flats_dom = keys_a.reshape(-1), flats_a.reshape(-1)
+        keys_dom, flats_dom, counts = _bin_binkeys(valid=valid, **pops)
+        in_ov_out = ov_rank_out = None
 
-    # live keys are unique, dead entries identical: any sort order agrees
+    # live keys are unique, dead entries of one gaussian tie: any sort order
+    # agrees on the live prefix
     sorted_keys, perm = torch.sort(keys_dom)
     sorted_flat = flats_dom[perm]
+    if want_dense:
+        dense = dense_dom[perm]
     sorted_tile = (sorted_keys >> rank_bits).to(torch.int32)
     sorted_orig = torch.clamp(torch.div(sorted_flat, m, rounding_mode="floor"), max=c - 1)
     tile_offsets = torch.searchsorted(
@@ -249,7 +369,43 @@ def bin_gaussians(
         counts=counts,
         num_overflow=num_overflow,
         n_gt=n_gt,
+        dense=dense,
+        in_ov=in_ov_out,
+        ov_rank=ov_rank_out,
     )
+
+
+def _bin_binkeys(
+    *, c, m, ts, tx_n, num_tiles, b_small, two_pop, rank_bits, valid, rank, mx, my,
+    tx0, ty0, w, count, in_ov, safe_id, slot_valid, conics, opacities,
+):
+    """Each population's keys, flats and counts from the ``binkeys`` kernel.
+    Returns the sort domain's keys and flats, and the counts."""
+    device = mx.device
+    arange_c = torch.arange(c, dtype=torch.int32, device=device)
+    fgeo = torch.stack(
+        [mx, my, conics[:, 0], conics[:, 1], conics[:, 2], _s_max(opacities)]
+    ).contiguous()
+    ints = [tx0, ty0, w, count, rank.to(torch.int32), arange_c]
+    kw = dict(
+        m=m, ts=ts, tiles_x=tx_n, num_tiles=num_tiles, rank_bits=rank_bits,
+        sentinel_flat=c * m,
+    )
+    livebase_a = valid & ~in_ov if two_pop else valid
+    igeo_a = torch.stack(ints + [livebase_a.to(torch.int32)])
+    keys_a, flats_a, cnt_small, cnt_full = binkeys_kernel.binkeys(
+        fgeo, igeo_a, n_keys=b_small if two_pop else m, **kw
+    )
+    if not two_pop:
+        return keys_a.reshape(-1), flats_a.reshape(-1), cnt_small
+    igeo_b = torch.stack([x[safe_id] for x in ints] + [slot_valid.to(torch.int32)])
+    keys_b, flats_b, _, _ = binkeys_kernel.binkeys(
+        fgeo[:, safe_id].contiguous(), igeo_b, n_keys=m, **kw
+    )
+    counts = torch.where(in_ov, cnt_full, cnt_small)
+    keys_dom = torch.cat([keys_a.reshape(-1), keys_b.reshape(-1)])
+    flats_dom = torch.cat([flats_a.reshape(-1), flats_b.reshape(-1)])
+    return keys_dom, flats_dom, counts
 
 
 def pack_features(
@@ -347,7 +503,9 @@ def _prepare(
         ov_capacity=_ov_capacity(means2d.shape[0], ov_frac),
         small_budget=small_budget, height=height,
     )
-    # the sort domain can be smaller than a large requested cap
+    # the sort domain can be smaller than a large requested cap; the dense
+    # side channel stays at full length (the backward's inverse permutation
+    # needs every sort-domain entry)
     isect_cap = min(isect_cap, binning.isect_flat.shape[0])
     sliced = binning._replace(
         isect_orig=binning.isect_orig[:isect_cap],
@@ -376,37 +534,104 @@ def _tiled_impl(
     return img, final_t, (binning, feats, tfin_t, last_t)
 
 
-def _reduce_to_gaussians(rows, isect_flat, counts, num_isects, m: int) -> torch.Tensor:
-    """Per-intersection gradient rows [I, 16] -> per-Gaussian rows [C, 11].
-
-    1. a stable sort of (flat id, position) groups each Gaussian's <= m
-       rows in flat order, dead rows (flat id C*m) last, each dead row in a
-       group of its own so that no lookahead walks the dead tail;
-    2. one row gather into that order;
-    3. ``segsum_band`` sums each group onto its first row;
-    4. a gather of the rows at the group starts (exclusive cumsum of the
-       binning's live counts).
-    Exact when every live intersection fits the capacity; on a truncated
-    step the starts would misalign, so the gradient is zero (the
-    trainer's watchdog grows the capacity: one lost step, never a
-    corrupted one)."""
-    if m > segments.LOOK:
-        raise NotImplementedError(
-            f"max_tiles^2 = {m} > {segments.LOOK}: only the band backward "
-            "reduction is ported (ROADMAP.md Queue 1 item 6)"
-        )
-    icap, c = isect_flat.shape[0], counts.shape[0]
+# ------------------------------------------------------------- reductions
+# Each turns the per-intersection gradient rows [I, 16] (one per capacity
+# slot; rows past the last tile's range are zero, as ``tiled_backward``
+# writes them) into per-Gaussian rows [C, 11]. Exact when every live
+# intersection fits the capacity; on a truncated step the gradient is zero
+# (the trainer's watchdog grows the capacity: one lost step, never a
+# corrupted one).
+def _flat_sorted(rows, isect_flat, c: int, m: int):
+    """A stable sort of (flat id, position) groups each Gaussian's <= m rows
+    in flat order, dead rows (flat id C*m) last; one row gather into that
+    order. Each dead row gets a group id of its own (past the Gaussians'),
+    so no kernel walks the dead tail as one group."""
+    icap = isect_flat.shape[0]
     flat_sorted, perm = torch.sort(isect_flat, stable=True)
     dead_ids = c + torch.arange(icap, dtype=flat_sorted.dtype, device=flat_sorted.device)
     g = torch.where(
         flat_sorted < c * m, torch.div(flat_sorted, m, rounding_mode="floor"), dead_ids
     ).to(torch.int32)
-    sums = segments.segsum_band(rows[perm], g)
+    return rows[perm], g
+
+
+def _gather_starts(sums, counts, num_isects) -> torch.Tensor:
+    """Each Gaussian's row at its group's start (exclusive cumsum of the
+    binning's live counts), zero where it has none or the step truncated."""
+    icap = sums.shape[0]
     counts = counts.to(torch.int64)
     starts = torch.cumsum(counts, 0) - counts
     have = (counts > 0) & (num_isects <= icap)
     dsum = sums[torch.clamp(starts, max=icap - 1), : tile_raster.NUM_LIVE_GRADS]
     return torch.where(have[:, None], dsum, torch.zeros_like(dsum))
+
+
+def _reduce_band(rows, isect_flat, counts, num_isects, m: int) -> torch.Tensor:
+    """Flat sort, the ``segsum_band`` kernel (each group's sum on its first
+    row; groups of at most ``segments.LOOK`` rows), the starts gather."""
+    grouped, g = _flat_sorted(rows, isect_flat, counts.shape[0], m)
+    return _gather_starts(segments.segsum_band(grouped, g), counts, num_isects)
+
+
+def _reduce_scan(rows, isect_flat, counts, num_isects, m: int) -> torch.Tensor:
+    """Flat sort, a log-step segmented suffix scan over ceil(log2 m) shifts
+    in plain tensor ops (the JAX package's XLA scan, ``rasterize_tiled.py:
+    1059-1101``), the starts gather. JAX keeps two layouts of the scan, for
+    XLA's fusion and its bf16 hi/lo lanes; with f32 [I, 16] rows they are
+    one."""
+    grouped, g = _flat_sorted(rows, isect_flat, counts.shape[0], m)
+    sums = segments.segsum_band_plain(grouped, g, look=m)
+    return _gather_starts(sums, counts, num_isects)
+
+
+def _reduce_pallas(rows, isect_flat, counts, num_isects, m: int) -> torch.Tensor:
+    """Flat sort, the ``segsum_compact`` kernel (one row per present group in
+    ascending id order: the Gaussians with live rows, then the dead rows,
+    which ``max_groups = C + 1`` cuts off after the first), then the
+    ``monotone_expand`` kernel back to one row per Gaussian, at its rank
+    among the present ones."""
+    c, icap = counts.shape[0], rows.shape[0]
+    grouped, g = _flat_sorted(rows, isect_flat, c, m)
+    compact = segments.segsum_compact(grouped, g, max_groups=c + 1)
+    present = counts > 0
+    present_i = present.to(torch.int32)
+    rank = torch.cumsum(present_i, 0, dtype=torch.int32) - present_i
+    dsum = segments.monotone_expand(compact, rank, present)[:, : tile_raster.NUM_LIVE_GRADS]
+    return torch.where(num_isects <= icap, dsum, torch.zeros_like(dsum))
+
+
+def _reduce_dense(
+    rows, dense, in_ov, ov_rank, num_isects, c: int, m: int, ov_cap: int
+) -> torch.Tensor:
+    """Rows moved into the dense duplicate grid, where each Gaussian's rows
+    sit at a fixed stride, and summed there by the ``group_reduce`` kernel
+    (``rasterize_tiled.py:880-946``):
+
+    1. ``q``, the inverse of the binning's dense permutation, is one
+       scatter of ``arange`` (JAX sorts ``(dense, iota)`` for it);
+    2. one row gather into dense-slot order; slots at sorted positions past
+       the capacity read zero (they are dead, or the step truncated);
+    3. ``group_reduce`` over population A (``b_small`` rows per Gaussian)
+       and over population B (M rows per slot), B's sums folded into their
+       Gaussians by a gather at ``ov_rank``; one population: one
+       ``group_reduce`` of M rows per Gaussian."""
+    icap, d_total = rows.shape[0], dense.shape[0]
+    q = torch.empty_like(dense).scatter_(
+        0, dense, torch.arange(d_total, dtype=dense.dtype, device=dense.device)
+    )
+    grid = rows[torch.clamp(q, max=icap - 1)]
+    grid.masked_fill_((q >= icap)[:, None], 0.0)
+    del q
+    if in_ov is not None:
+        b_eff = (d_total - ov_cap * m) // c
+        dsum = group_reduce_kernel.group_reduce(grid[: c * b_eff], b_eff)
+        ov_sum = group_reduce_kernel.group_reduce(grid[c * b_eff :], m)
+        fold = ov_sum[torch.clamp(ov_rank, max=ov_cap - 1).to(torch.int64)]
+        dsum = dsum + torch.where(in_ov[:, None], fold, torch.zeros_like(fold))
+    else:
+        dsum = group_reduce_kernel.group_reduce(grid, m)
+    dsum = dsum[:, : tile_raster.NUM_LIVE_GRADS]
+    return torch.where(num_isects <= icap, dsum, torch.zeros_like(dsum))
 
 
 class _RasterizeTiledCore(torch.autograd.Function):
@@ -420,6 +645,7 @@ class _RasterizeTiledCore(torch.autograd.Function):
         height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
         ov_frac, small_budget,
     ):
+        reduce = _bwd_reduce()
         img, final_t, (binning, feats, tfin_t, last_t) = _tiled_impl(
             means2d, conics, colors, opacities, radii, depths,
             height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
@@ -427,16 +653,22 @@ class _RasterizeTiledCore(torch.autograd.Function):
         )
         ctx.save_for_backward(
             feats, tfin_t, last_t, binning.tile_offsets, binning.isect_flat,
-            binning.counts, binning.num_isects,
+            binning.counts, binning.num_isects, binning.dense, binning.in_ov,
+            binning.ov_rank,
         )
-        ctx.dims = (height, width, tile_size, max_tiles_w * max_tiles_h)
+        m = max_tiles_w * max_tiles_h
+        if reduce == "band" and m > segments.LOOK:
+            reduce = "scan"  # groups longer than the band kernel's lookahead
+        ctx.reduce = reduce
+        ctx.dims = (height, width, tile_size, m, _ov_capacity(means2d.shape[0], ov_frac))
         ctx.mark_non_differentiable(binning.num_isects)
         return img, final_t, binning.num_isects
 
     @staticmethod
     def backward(ctx, g_img, g_t, _g_n):
-        feats, tfin_t, last_t, tile_offsets, isect_flat, counts, num_isects = ctx.saved_tensors
-        height, width, tile_size, m = ctx.dims
+        (feats, tfin_t, last_t, tile_offsets, isect_flat, counts, num_isects,
+         dense, in_ov, ov_rank) = ctx.saved_tensors
+        height, width, tile_size, m, ov_cap = ctx.dims
         geom = image_geometry(height, width, tile_size)
         basis = tile_pixel_basis(geom, feats.device)
         rows = tile_raster.tiled_backward(
@@ -445,7 +677,13 @@ class _RasterizeTiledCore(torch.autograd.Function):
             image_to_tiles(g_t.contiguous(), geom, height, width).contiguous(),
             tfin_t, last_t,
         )
-        dsum = _reduce_to_gaussians(rows, isect_flat, counts, num_isects, m)
+        if ctx.reduce == "dense":
+            dsum = _reduce_dense(
+                rows, dense, in_ov, ov_rank, num_isects, counts.shape[0], m, ov_cap
+            )
+        else:
+            reduce_fn = {"band": _reduce_band, "scan": _reduce_scan, "pallas": _reduce_pallas}
+            dsum = reduce_fn[ctx.reduce](rows, isect_flat, counts, num_isects, m)
         v_abs = dsum[:, 9:11] if ctx.needs_input_grad[6] else None
         return (
             dsum[:, 0:2], dsum[:, 2:5], dsum[:, 6:9], dsum[:, 5], None, None, v_abs,

@@ -29,11 +29,11 @@ print(len(names), bad)
 print(" ".join(names))
 """
 
-# the training slice's modules, each of which must be among those imported
+# the training path's modules, each of which must be among those imported
 TRAINING_MODULES = (
     "ops.clip", "ops.ssim", "ops.lr_schedule", "ops.kernels.segments",
-    "models.loss", "models.optimizer", "models.density", "scene.scene",
-    "utils.tb", "training.trainer",
+    "ops.kernels.group_reduce", "models.loss", "models.optimizer",
+    "models.density", "scene.scene", "utils.tb", "training.trainer",
 )
 
 

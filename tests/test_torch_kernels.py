@@ -13,6 +13,7 @@ import torch
 from easy_gaussian_splatting_torch.ops import rasterize_tiled as trt
 from easy_gaussian_splatting_torch.ops.kernels import _build
 from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
 from easy_gaussian_splatting_torch.ops.kernels import segments as seg
 from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
 
@@ -49,7 +50,10 @@ def _scene(rng, n, height, width, device):
 
 def test_build_all(cuda):
     secs = _build.build_all()
-    assert set(secs) == {"binkeys", "tile_forward", "tile_backward", "segsum_band"}
+    assert set(secs) == {
+        "binkeys", "tile_forward", "tile_backward", "segsum_band", "segsum_compact",
+        "monotone_expand", "group_reduce",
+    }
 
 
 @pytest.mark.parametrize("small_budget", [2, 4, 9])
@@ -172,6 +176,55 @@ def test_segsum_band_matches_plain(cuda, rng):
     assert ((got - want).abs() <= 1e-5 * mag).all()
 
 
+def test_segsum_compact_matches_plain(cuda, rng):
+    """Groups of 1-16 rows, one of 700 rows, then a dead tail whose rows
+    each have an id of their own (the training path's layout), cut by
+    ``max_groups`` after the first dead row: each group's sum within 1e-5 of
+    its absolute sum (the plain version's ``index_add_`` adds in another
+    order on the card)."""
+    sizes = np.concatenate([rng.integers(1, 17, size=20000), [700], rng.integers(1, 17, size=20000)])
+    n_live = sizes.shape[0]
+    g = np.repeat(np.arange(n_live), sizes)
+    g = np.concatenate([g, n_live + np.arange(5000)]).astype(np.int32)
+    rows = torch.as_tensor(rng.normal(size=(g.shape[0], 16)).astype(np.float32), device=cuda)
+    gt = torch.as_tensor(g, device=cuda)
+    before = seg.compact_launches
+    got = seg.segsum_compact(rows, gt, n_live + 1)
+    want = seg.segsum_compact_plain(rows, gt, n_live + 1)
+    mag = seg.segsum_compact_plain(rows.abs(), gt, n_live + 1)
+    torch.cuda.synchronize()
+    assert seg.compact_launches == before + 1
+    assert ((got - want).abs() <= 1e-5 * mag).all()
+
+
+@pytest.mark.parametrize("c", [1000, 300001])
+def test_monotone_expand_matches_plain(cuda, rng, c):
+    """A gather of present rows: equal to the plain version bit for bit, at a
+    length that is no multiple of any block size."""
+    present = torch.as_tensor(rng.uniform(size=c) < 0.7, device=cuda)
+    p = present.to(torch.int32)
+    rank = torch.cumsum(p, 0, dtype=torch.int32) - p
+    compact = torch.as_tensor(rng.normal(size=(int(p.sum()) + 1, 16)).astype(np.float32), device=cuda)
+    before = seg.expand_launches
+    got = seg.monotone_expand(compact, rank, present)
+    want = seg.monotone_expand_plain(compact, rank, present)
+    torch.cuda.synchronize()
+    assert seg.expand_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [2, 9, 16])
+def test_group_reduce_matches_plain(cuda, rng, b):
+    """Row-order sums: equal to the plain version bit for bit."""
+    x = torch.as_tensor(rng.normal(size=(100003 * b, 16)).astype(np.float32), device=cuda)
+    before = gr.launches
+    got = gr.group_reduce(x, b)
+    want = gr.group_reduce_plain(x, b)
+    torch.cuda.synchronize()
+    assert gr.launches == before + 1
+    assert torch.equal(got, want)
+
+
 def test_wrappers_check_their_inputs(cuda):
     fgeo = torch.zeros((6, 8), device=cuda)
     igeo = torch.zeros((7, 8), dtype=torch.int32, device=cuda)
@@ -194,3 +247,23 @@ def test_wrappers_check_their_inputs(cuda):
                           torch.zeros((4, 3, 1024), device=cuda), t, t, last)
     with pytest.raises(ValueError):
         seg.segsum_band(torch.zeros((4, 16), device=cuda), torch.zeros(4, dtype=torch.int64, device=cuda))
+    rows, g = torch.zeros((4, 16), device=cuda), torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        seg.segsum_compact(rows, g.long(), 4)
+    with pytest.raises(ValueError):
+        seg.segsum_compact(rows[:, :12], g, 4)
+    with pytest.raises(ValueError):
+        seg.segsum_compact(rows, g, 0)
+    present = torch.ones(4, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        seg.monotone_expand(rows, g, present.int())
+    with pytest.raises(ValueError):
+        seg.monotone_expand(rows.double(), g, present)
+    with pytest.raises(ValueError):
+        seg.monotone_expand(rows, g[:3], present)
+    with pytest.raises(ValueError):
+        gr.group_reduce(rows, 3)
+    with pytest.raises(ValueError):
+        gr.group_reduce(rows.t().contiguous().t(), 2)
+    with pytest.raises(ValueError):
+        gr.group_reduce(torch.zeros(4 * 16 + 1, device=cuda)[1:].view(4, 16), 2)  # unaligned

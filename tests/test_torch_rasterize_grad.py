@@ -210,20 +210,6 @@ def test_truncated_capacity_gives_zero_gradient(rng):
     assert np.abs(full[0]).max() > 0
 
 
-def test_band_reduction_limit_raises(rng):
-    """Only the band reduction is ported: a window of more than 128 cells
-    raises in the backward instead of falling back."""
-    scene = _scene(rng, n=10)
-    m2d, con, col, opa, dep, rad = (torch.as_tensor(x) for x in scene)
-    m2d.requires_grad_(True)
-    img, _ = trt.rasterize_tiled(
-        m2d, con, col, opa, dep, torch.as_tensor(BG), None, H, W, radii=rad,
-        tile_size=TS, max_tiles_w=12, max_tiles_h=12,
-    )
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        img.sum().backward()
-
-
 # ------------------------------------------------------------ tie repair
 def test_white_background_tie_gradient_matches_jax(rng):
     """Pixels no Gaussian covers render exactly the white background, 1.0,
