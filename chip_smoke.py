@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--seed 0] [--gaussians 1000000]
+    python3 chip_smoke.py [--seed 0] [--gaussians 1000000] [--ab-parent DIR]
 
 Drives ``easy_gaussian_splatting_torch`` (never the JAX package) through
 its offline viewer, the first main path of the port:
@@ -43,7 +43,11 @@ and then through its trainer, the second:
    loss falls before the first event and the checkpoint reloads with its
    Adam state;
 10. numbers: step time, both backward kernels' and plain versions' times
-   and bounds, peak device memory, a profile of three steps;
+   and bounds, the backward's work counts (pairs walked from its warps'
+   horizons, composited, kept by its cull), peak device memory, a profile
+   of three steps on the state after the opacity reset, and
+   ``tiled_backward`` checked, timed and counted again on that step's
+   inputs;
 
 and then through the trainer under the other backward reductions
 (``rasterize_tiled.BWD_REDUCE``), the main paths of this part of the port:
@@ -59,7 +63,13 @@ and then through the trainer under the other backward reductions
    event runs, at step 10 (printed): its kernels' launches rise every step,
    the other reductions' kernels (and under ``dense`` ``binkeys``) never
    run, no step truncates, the loss is finite and falls before the event;
-   step time, peak device memory and a profile of three steps.
+   step time, peak device memory and a profile of three steps;
+   ``group_reduce`` (one launch for both of ``dense``'s populations) timed
+   back to back and on the device alone behind a device-side wait, beside
+   the library's sum of each population;
+12. with ``--ab-parent DIR`` (another checkout, the parent commit): its
+   ``tiled_backward`` and ``group_reduce`` beside this tree's on the same
+   recorded inputs, outputs compared, timed parent, change, change, parent.
 
 Then one JSON line of the seven kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
@@ -104,11 +114,10 @@ PEAK_F32_PER_S = 67e12
 # intersection) pair reached (7-term polynomial, exp, eligibility tests)
 BINKEYS_OPS_PER_CELL = 75
 FORWARD_OPS_PER_PAIR = 20
-# tiled_backward: every (pixel, intersection) pair the walk reaches replays
-# the eligibility test (~20, as the forward); each composited pair adds
-# ~39 operations of gradient math and 11 adds to the per-tile sums
-BACKWARD_OPS_PER_WALKED = 20
-BACKWARD_OPS_PER_COMPOSITED = 50
+# tiled_backward per composited (pixel, intersection) pair: the eligibility
+# test (~20, as the forward), ~39 operations of gradient math and 11 adds
+# to the per-tile sums
+BACKWARD_OPS_PER_COMPOSITED = 70
 
 TOL = 1e-4  # rgb / final-T agreement of kernel and plain forward
 MIN_AGREE = 0.9999  # share of pixels that must agree within TOL
@@ -315,6 +324,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls queued behind a
+    wait on the device, so that none waits on the host's launch."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~30 ms of device clock cycles
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def binkeys_bound(calls):
     """(bytes, f32 ops) the binkeys calls of one frame must move and do."""
     nbytes = ops = 0
@@ -498,7 +525,7 @@ def near_eligibility_edge(feats, offsets, basis, last, row: int) -> bool:
     return bool(((d < 1e-5) & (last[t] >= row)).any())
 
 
-def check_backward(call):
+def check_backward(call, tag: str = "8"):
     """Kernel against plain version on the recorded backward call: every
     column within BWD_TOL of its largest magnitude; rows outside it are
     counted and each must replay an eligibility decision at its rounding
@@ -520,17 +547,22 @@ def check_backward(call):
     err = (got - want).abs()
     rel = err[:, :n_live].amax(dim=0) / scale.clamp(min=1e-30)
     bad = (err[:, :n_live] > BWD_TOL * scale).any(dim=1).nonzero().flatten().tolist()
-    log(f"[8] tiled_backward: {got.shape[0]} rows, worst column error / column max "
+    log(f"[{tag}] tiled_backward: {got.shape[0]} rows, worst column error / column max "
         f"{float(rel.max()):.2e} (per column: {', '.join(f'{float(x):.1e}' for x in rel)}); "
         f"{len(bad)} rows outside {BWD_TOL} of their column's max")
     feats, offsets, basis = args[0], args[1], args[2]
     last = args[6]
     explained = sum(1 for r in bad[:64] if near_eligibility_edge(feats, offsets, basis, last, r))
-    log(f"[8] tiled_backward: {explained} of {min(len(bad), 64)} replayed rows have an "
+    log(f"[{tag}] tiled_backward: {explained} of {min(len(bad), 64)} replayed rows have an "
         "eligibility decision within rounding of its edge")
     check(explained == min(len(bad), 64) and len(bad) <= 64,
           "tiled_backward: unexplained differences from the plain version")
+    check(bool(torch.isfinite(got).all()), "tiled_backward: a value is not finite")
     check(bool((got[:, n_live:] == 0).all()), "tiled_backward: padding columns not zero")
+    check(bool((got[int(offsets[-1]):] == 0).all()), "tiled_backward: rows past the tiles not zero")
+    check(torch.equal(got, tr.tiled_backward(*args)), "tiled_backward: two launches differ")
+    log(f"[{tag}] tiled_backward: finite, zero past the tiles' {int(offsets[-1])} rows and in "
+        "columns 11-15, a second launch equal bit for bit")
     return float(err.max()), plain_ms
 
 
@@ -698,18 +730,42 @@ def check_training(loop, rec, cfg, device) -> None:
 
 
 # ----------------------------------------------------------------- phase 10
-def backward_pairs(feats, offsets, basis, last):
-    """(walked, composited) (pixel, intersection) pairs of the backward on
-    this data: pairs at or before the pixel's last contributor, and those
-    of them the eligibility test accepts."""
+def backward_counts(feats, offsets, basis, last) -> dict:
+    """The backward's work on this data, in the kernel's layout of 64-pixel
+    warps (``tile_raster.warp_pixels``): the (pixel, intersection) pairs
+    down from each tile's horizon (``tile``: the rows the tile stages, for
+    each of its pixels), from each warp's horizon (``warp``: the largest
+    ``last`` of its pixels), and at or before the pixel's own ``last``
+    (``pixel``);
+    ``composited``, the pixel pairs the eligibility test accepts;
+    ``warp_steps``, the (warp, intersection) pairs to the warp's horizon;
+    ``warp_kept``, those the kernel's cull keeps (``warp_reach_plain``), the
+    rows its warps walk; ``warp_rows``, those with at least one composited
+    pixel (one warp sum each); the rows each tile stages, down from its
+    horizon (``walk_max``, ``walk_p90``, ``walk_mean``)."""
     import torch
 
     from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
     from easy_gaussian_splatting_torch.ops.rasterize_ref import ALPHA_CLAMP, ALPHA_THRESH
 
+    dev = last.device
     offs = offsets.long()
-    walked = composited = 0
-    for t0, t1, longest in tr._tile_batches((offs[1:] - offs[:-1]).tolist(), basis.shape[0], 1 << 24):
+    start, end = offs[:-1], offs[1:]
+    t, p = last.shape
+    last64 = last.long()
+    tile_len = (torch.minimum(last64.amax(1) + 1, end) - start).clamp(min=0)
+    n = dict(tile=int(tile_len.sum()) * p, pixel=0, composited=0, tiles=t, warp_kept=0, warp_rows=0,
+             walk_max=int(tile_len.max()), walk_mean=float(tile_len.double().mean()),
+             walk_p90=float(torch.quantile(tile_len.double(), 0.9)))
+    idx = tr.warp_pixels(p).to(dev)  # [warps, 64] pixel ids, p: none
+    padded = torch.cat([last64, torch.full((t, 1), -1, dtype=torch.long, device=dev)], 1)
+    warp_h = padded[:, idx].amax(2)  # [t, warps]
+    warp_len = (torch.minimum(warp_h + 1, end[:, None]) - start[:, None]).clamp(min=0)
+    n["warp"] = int((warp_len * idx.lt(p).sum(1)).sum())
+    n["warp_steps"] = int(warp_len.sum())
+    rects = [(basis[i[i < p], 3].min(), basis[i[i < p], 3].max(),
+              basis[i[i < p], 4].min(), basis[i[i < p], 4].max()) for i in idx]
+    for t0, t1, longest in tr._tile_batches((end - start).tolist(), p, 1 << 24):
         if longest == 0:
             continue
         lane = torch.arange(longest, device=feats.device)
@@ -720,27 +776,46 @@ def backward_pairs(feats, offsets, basis, last):
         s2 = tr._sigma2(f, basis)
         nlo = f[..., 6][:, None, :]
         alpha = torch.clamp(torch.exp(-torch.maximum(s2, nlo)), max=ALPHA_CLAMP)
-        reach = in_range[:, None, :] & (gpos[:, None, :] <= last[t0:t1, :, None].long())
-        elig = (s2 >= nlo - tr.SIGMA_EPS) & (alpha >= ALPHA_THRESH)
-        walked += int(reach.sum())
-        composited += int((reach & elig).sum())
-    return walked, composited
+        reach = in_range[:, None, :] & (gpos[:, None, :] <= last64[t0:t1, :, None])
+        comp = reach & (s2 >= nlo - tr.SIGMA_EPS) & (alpha >= ALPHA_THRESH)
+        n["pixel"] += int(reach.sum())
+        n["composited"] += int(comp.sum())
+        del s2, alpha, reach
+        comp = torch.cat([comp, torch.zeros_like(comp[:, :1])], 1)
+        n["warp_rows"] += int(comp[:, idx].any(2).sum())
+        del comp
+        rows = f.view(-1, f.shape[-1])
+        for k, rect in enumerate(rects):
+            walk = in_range & (gpos <= warp_h[t0:t1, k, None])
+            n["warp_kept"] += int((walk & tr.warp_reach_plain(rows, rect).view(walk.shape)).sum())
+    return n
 
 
-def backward_bound(args):
+def log_backward_counts(tag: str, what: str, n: dict) -> None:
+    log(f"[{tag}] tiled_backward work on {what}: (pixel, intersection) pairs down from the "
+        f"tile horizon {n['tile']}, from the 64-pixel warp horizon {n['warp']}, to each "
+        f"pixel's last {n['pixel']}; composited "
+        f"{n['composited']}; (warp, intersection) pairs to the warp horizon {n['warp_steps']}, "
+        f"kept by the cull {n['warp_kept']}, with a composited pixel {n['warp_rows']}; rows "
+        f"staged per tile max {n['walk_max']}, p90 {n['walk_p90']:.0f}, mean "
+        f"{n['walk_mean']:.1f} over {n['tiles']} tiles")
+
+
+def backward_bound(args, n: dict):
     """Bytes: the live feature rows read once (the tiles' ranges end at
     ``offsets[-1]``), every gradient row the function returns written once,
-    the per-pixel cotangents, T and last read once."""
+    the per-pixel cotangents, T and last read once. Operations: those of
+    the composited pairs only (``backward_counts``); a pair that is not
+    composited adds nothing to the result, and the kernel's cull skips most
+    of them without per-pixel work."""
     from easy_gaussian_splatting_torch.ops.kernels.tile_raster import NUM_GRAD_COLS
 
     feats, offsets, basis, g_img, g_t, t_fin, last = args
-    walked, composited = backward_pairs(feats, offsets, basis, last)
     live = int(offsets[-1])
     nbytes = live * feats.shape[1] * 4 + feats.shape[0] * NUM_GRAD_COLS * 4 \
         + offsets.numel() * 4 + basis.numel() * 4 + g_img.numel() * 4 \
         + (g_t.numel() + t_fin.numel() + last.numel()) * 4
-    ops = BACKWARD_OPS_PER_WALKED * walked + BACKWARD_OPS_PER_COMPOSITED * composited
-    return bound_ms(nbytes, ops) + (walked, composited)
+    return bound_ms(nbytes, BACKWARD_OPS_PER_COMPOSITED * n["composited"])
 
 
 def segsum_bound(args):
@@ -769,12 +844,27 @@ REDUCE_SCHEDULE = dict(
     data_device_cache=False, log_every=1, dataloader_workers=2,
 )
 REDUCE_TIMED = range(4, 9)  # steps 5-9: the five before the event
-# each reduction's own kernels and their launches per step ("dense" over two
-# populations: one group_reduce each)
+# each reduction's own kernels and their launches per step ("dense" sums
+# both of its populations in one group_reduce launch)
 REDUCE_KERNELS = {
     "band": {"segsum_band": 1}, "scan": {},
-    "pallas": {"segsum_compact": 1, "monotone_expand": 1}, "dense": {"group_reduce": 2},
+    "pallas": {"segsum_compact": 1, "monotone_expand": 1}, "dense": {"group_reduce": 1},
 }
+
+
+def populations(call):
+    """[(rows, b)]: the row blocks of a recorded ``group_reduce`` call and
+    their group sizes (the head, then the tail population if any)."""
+    (x, b), kw = call
+    if kw.get("tail") is None:
+        return [(x, b)]
+    tail_b, tail_groups = kw["tail"]
+    split = x.shape[0] - tail_b * tail_groups
+    return [(x[:split], b), (x[split:], tail_b)]
+
+
+def describe(call) -> str:
+    return " and ".join(f"{x.shape[0]} rows in groups of {b}" for x, b in populations(call))
 
 
 def check_group_reduce(calls) -> float:
@@ -785,12 +875,11 @@ def check_group_reduce(calls) -> float:
     from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
 
     err = 0.0
-    for (x, b), _ in calls:
-        got, want = gr.group_reduce(x, b), gr.group_reduce_plain(x, b)
+    for args, kw in calls:
+        got, want = gr.group_reduce(*args, **kw), gr.group_reduce_plain(*args, **kw)
         err = max(err, float((got - want).abs().max()))
-        check(torch.equal(got, want), f"group_reduce (b={b}) differs from the plain version")
-    log("[11] group_reduce: equal to the plain version on " + ", ".join(
-        f"{x.shape[0]} rows in groups of {b}" for (x, b), _ in calls))
+        check(torch.equal(got, want), "group_reduce differs from the plain version")
+    log("[11] group_reduce: equal to the plain version on " + "; ".join(map(describe, calls)))
     return err
 
 
@@ -865,7 +954,7 @@ def group_reduce_bound(calls):
     """Every input row read once, every group sum written once; b - 1 adds
     per group and column."""
     nbytes = ops = 0
-    for (x, b), _ in calls:
+    for x, b in (pop for call in calls for pop in populations(call)):
         groups = x.shape[0] // b
         nbytes += x.numel() * 4 + groups * x.shape[1] * 4
         ops += (b - 1) * groups * x.shape[1]
@@ -906,9 +995,20 @@ def time_reduction_kernels(name, rec):
     out = {}
     if name == "dense":
         calls = rec["group_reduce"]
-        ms = sum(cuda_ms(lambda x=x, b=b: gr.group_reduce(x, b), 20) for (x, b), _ in calls)
-        plain = sum(cuda_ms(lambda x=x, b=b: gr.group_reduce_plain(x, b), 3, 1) for (x, b), _ in calls)
-        lib = sum(cuda_ms(lambda x=x, b=b: x.view(-1, b, x.shape[1]).sum(1), 20) for (x, b), _ in calls)
+        pops = [pop for call in calls for pop in populations(call)]
+        for x, b in pops:
+            library = lambda x=x, b=b: x.view(-1, b, x.shape[1]).sum(1)  # noqa: E731
+            log(f"[11] library sum of {x.shape[0]} rows in groups of {b}: "
+                f"{cuda_ms(library, 20):.4f} ms (device alone {queued_ms(library, 20):.4f})")
+        for call in calls:
+            kernel = lambda call=call: gr.group_reduce(*call[0], **call[1])  # noqa: E731
+            log(f"[11] group_reduce launch, {describe(call)}: {cuda_ms(kernel, 20):.4f} ms "
+                f"(device alone {queued_ms(kernel, 20):.4f})")
+        # the step's launches, and the library's calls for the same
+        # populations, back to back as the step makes them
+        ms = cuda_ms(lambda: [gr.group_reduce(*a, **k) for a, k in calls], 20)
+        lib = cuda_ms(lambda: [x.view(-1, b, x.shape[1]).sum(1) for x, b in pops], 20)
+        plain = cuda_ms(lambda: [gr.group_reduce_plain(*a, **k) for a, k in calls], 3, 1)
         out["group_reduce"] = (ms, plain, lib) + group_reduce_bound(calls)
     elif name == "pallas":
         call = rec["segsum_compact"][0]
@@ -1035,6 +1135,57 @@ def train_reduction(name, xyzs, rgbs, frames, device, seed):
             3, "step", f"11 {name}", top=8,
         )
     return total, float(np.median(step_ms)), peak
+
+
+# ----------------------------------------------------------------- phase 12
+def parent_kernels(root: Path):
+    """The ``tile_raster`` and ``group_reduce`` wrapper modules of another
+    checkout of this repository, imported as a package of their own (they
+    build their kernels from that checkout's sources into its own build
+    directory), so that both trees' kernels run in one process."""
+    import importlib
+    import importlib.util
+
+    name = "ab_parent_egs"
+    pkg = root.resolve() / "easy_gaussian_splatting_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return (importlib.import_module(f"{name}.ops.kernels.tile_raster"),
+            importlib.import_module(f"{name}.ops.kernels.group_reduce"))
+
+
+def ab_compare(root: Path, bw_inputs: dict, gr_calls) -> None:
+    """Each redesigned kernel against the parent's on the same recorded
+    inputs: outputs compared, then timed parent, change, change, parent
+    (CUDA events over 20 launches each)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
+    from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+
+    ptr, pgr = parent_kernels(root)
+    cases = []
+    for what, a in bw_inputs.items():
+        d = (ptr.tiled_backward(*a) - tr.tiled_backward(*a)).abs().amax(0)[: tr.NUM_LIVE_GRADS]
+        log(f"[12] tiled_backward on {what}: change vs parent max |diff| per column "
+            + ", ".join(f"{float(x):.1e}" for x in d))
+        cases.append((f"tiled_backward on {what}", lambda a=a: ptr.tiled_backward(*a),
+                      lambda a=a: tr.tiled_backward(*a)))
+    # the parent's wrapper takes one population a call
+    pops = [pop for call in gr_calls for pop in populations(call)]
+    check(torch.equal(torch.cat([pgr.group_reduce(x, b) for x, b in pops]),
+                      torch.cat([gr.group_reduce(*a, **k) for a, k in gr_calls])),
+          "group_reduce differs from the parent's")
+    cases.append(("group_reduce, the dense step's populations",
+                  lambda: [pgr.group_reduce(x, b) for x, b in pops],
+                  lambda: [gr.group_reduce(*a, **k) for a, k in gr_calls]))
+    for what, parent, change in cases:
+        p1, c1, c2, p2 = (cuda_ms(fn, 20) for fn in (parent, change, change, parent))
+        log(f"[12] {what}: parent {p1:.4f} ms, change {c1:.4f}, change {c2:.4f}, parent "
+            f"{p2:.4f}; change / parent {(c1 + c2) / (p1 + p2):.3f}")
 
 
 # ------------------------------------------------------------------ main
@@ -1281,15 +1432,16 @@ def run(args) -> dict:
     bw_ms = cuda_ms(lambda: tr.tiled_backward(*bw_args), 20)
     seg_ms = cuda_ms(lambda: seg.segsum_band(*seg_args), 20)
     seg_plain = cuda_ms(lambda: seg.segsum_band_plain(*seg_args), 3, 1)
-    bw_bound, bw_by, walked, composited = backward_bound(bw_args)
+    bw_work = backward_counts(bw_args[0], bw_args[1], bw_args[2], bw_args[6])
+    bw_bound, bw_by = backward_bound(bw_args, bw_work)
     seg_bound, seg_by = segsum_bound(seg_args)
     log(f"[10] card: {card}")
     log(f"[10] train step (steps 15-19, host clock between synchronizes): median "
         f"{float(np.median(step_ms)):.2f} ms, each " + " ".join(f"{x:.2f}" for x in step_ms)
         + f"; all 40: " + " ".join(f"{s['ms']:.1f}" for s in rec["steps"]))
     log(f"[10] tiled_backward: {bw_ms:.4f} ms/step, plain {bw_plain:.4f} ms (one call), bound "
-        f"{bw_bound:.4f} ms ({bw_by}); {walked} (pixel, intersection) pairs walked, "
-        f"{composited} composited")
+        f"{bw_bound:.4f} ms ({bw_by}) on phase 8's inputs")
+    log_backward_counts("10", "phase 8's inputs", bw_work)
     log(f"[10] segsum_band: {seg_ms:.4f} ms/step, plain {seg_plain:.4f} ms, bound "
         f"{seg_bound:.4f} ms ({seg_by}); {seg_args[0].shape[0]} rows")
     log("[10] launches per step in train(): " + ", ".join(
@@ -1298,12 +1450,24 @@ def run(args) -> dict:
     step_fn = ttrainer.make_train_step(tcfg, ttrainer.get_render_fn(tcfg))
     fp = frames[0]
     fp_t = [torch.as_tensor(fp[k], device=device) for k in ("w2c", "K", "image", "mask")]
-    profile_device(
-        lambda: step_fn(loop.model, loop.adam, *fp_t, 1e-4, True, False, False, **step_kw),
-        3, "step", "10",
-    )
-    del loop, step_fn
+    with recording(tr, "tiled_backward") as post_calls:
+        profile_device(
+            lambda: step_fn(loop.model, loop.adam, *fp_t, 1e-4, True, False, False, **step_kw),
+            3, "step", "10",
+        )
+    # the backward on the state after the opacity reset: the inputs of the
+    # profile's first step
+    post_args = post_calls[0][0]
+    del loop, step_fn, post_calls
     torch.cuda.empty_cache()
+    check_backward((post_args, {}), "10")
+    post_ms = cuda_ms(lambda: tr.tiled_backward(*post_args), 20)
+    post_work = backward_counts(post_args[0], post_args[1], post_args[2], post_args[6])
+    post_bound, post_by = backward_bound(post_args, post_work)
+    log(f"[10] tiled_backward after the opacity reset: {post_ms:.4f} ms/step, bound "
+        f"{post_bound:.4f} ms ({post_by}); {int(post_args[1][-1])} live rows of "
+        f"{post_args[0].shape[0]}")
+    log_backward_counts("10", "the post-reset inputs", post_work)
 
     # ---- phase 11: the other backward reductions, each checked on the
     # inputs of phase 8's step, then driven through a short train() run
@@ -1316,6 +1480,8 @@ def run(args) -> dict:
             name, grad_fn, band_step, (state0, w2c0, K0, img0, mask0), step_kw)
         reduce_errs.update(errs)
         reduce_numbers.update(time_reduction_kernels(name, rec))
+        if name == "dense":
+            gr_calls = rec["group_reduce"]
         del rec
         torch.cuda.empty_cache()
         runs[name] = train_reduction(name, xyzs, rgbs, frames, device, args.seed) + (step_peak,)
@@ -1327,6 +1493,12 @@ def run(args) -> dict:
         log(f"[11] {name}: train step median (steps 5-9) {ms:.2f} ms; peak device memory in "
             f"train() {peak / 2**20:.0f} MiB, in one phase-8 step {step_peak / 2**20:.0f} MiB; "
             f"own kernels per step: {per_step or 'none'}")
+
+    # ---- phase 12 (with --ab-parent): the redesigned kernels against the
+    # parent commit's on the same recorded inputs
+    if args.ab_parent:
+        ab_compare(Path(args.ab_parent), {"phase 8's inputs": bw_args,
+                                          "the post-reset inputs": post_args}, gr_calls)
 
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
@@ -1364,6 +1536,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--gaussians", type=int, default=1_000_000)
+    parser.add_argument("--ab-parent", metavar="DIR",
+                        help="another checkout (the parent commit): time its tiled_backward and "
+                             "group_reduce beside this tree's on the same inputs (phase 12)")
     args = parser.parse_args(argv)
     try:
         import torch

@@ -19,6 +19,7 @@ JAX kernel's bf16 hi/lo lane split exists for the TPU only.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -37,6 +38,16 @@ ROW_MY = 14
 NUM_GRAD_COLS = 16  # gradient row width (11 live columns, 16-byte aligned)
 NUM_LIVE_GRADS = 11
 MAX_TILE_PIXELS = 1024  # one thread per pixel in a block
+WARP_PIXELS = 64  # pixels of one warp of the backward kernel, two per lane
+# s2 beyond it: exp(-s2) < 1/255 for any rounding of exp, so not eligible;
+# the backward kernel's per-warp cull skips the rows whose s2 is beyond it
+# at every pixel of the warp, with these allowances (csrc/tile_backward.cu
+# takes them from `tiled_backward`, read at each call)
+S2_REACH = 5.6
+CULL_COEF_TOL = 1e-5
+CULL_S2_SLACK = 3e-5
+CULL_EXT_SLACK = 1e-2
+CULL_DET_MIN = 1e-4
 # (pixel, intersection) pairs per batch of tiles in the plain version
 PLAIN_BATCH_PAIRS = 1 << 26
 # the backward's plain version keeps ~20 [B, P, L] temporaries
@@ -74,6 +85,63 @@ def _tile_batches(counts_h, p: int, max_pairs: int):
             longest, t1 = wider, t1 + 1
         yield t0, t1, longest
         t0 = t1
+
+
+def warp_block_side(p: int) -> int:
+    """The tile's side when its ``p`` pixels are a square whose side is a
+    multiple of 8: the backward kernel then gives each warp an 8x8 block of
+    pixels. Else 0: each warp takes 64 consecutive pixels."""
+    side = math.isqrt(p)
+    return side if side * side == p and side % 8 == 0 else 0
+
+
+def warp_pixels(p: int) -> torch.Tensor:
+    """[W, 64] i64: the pixels of each of the backward kernel's W warps, in
+    its layout (slot ``32 k + lane`` is pixel ``k`` of lane ``lane``); ``p``
+    where a warp has no pixel."""
+    warps = -(-p // WARP_PIXELS)
+    w = torch.arange(warps)[:, None]
+    slot = torch.arange(WARP_PIXELS)[None, :]
+    lane, k = slot % 32, slot // 32
+    side = warp_block_side(p)
+    if side:
+        blocks_x = side // 8
+        x = (w % blocks_x) * 8 + lane % 8
+        y = (w // blocks_x) * 8 + lane // 8 + 4 * k
+        return y * side + x
+    idx = w * WARP_PIXELS + slot
+    return torch.where(idx < p, idx, torch.full_like(idx, p))
+
+
+def warp_reach_plain(rows: torch.Tensor, rect) -> torch.Tensor:
+    """[R] bool: the backward kernel's per-warp cull (``out_of_reach`` in
+    ``csrc/tile_backward.cu``) on feature rows [R, 16] for the pixel centres'
+    bounding box ``rect = (x0, x1, y0, y1)``: False where no pixel of the box
+    can find the row eligible (every s2 there beyond ``S2_REACH``), True
+    where it may, or where the row fails a premise of the bound."""
+    f = rows.to(torch.float32)
+    a, b, c = f[:, ROW_CONIC], f[:, ROW_CONIC + 1], f[:, ROW_CONIC + 2]
+    mx, my, nlo = f[:, ROW_MX], f[:, ROW_MY], f[:, ROW_OPACITY]
+    x0, x1, y0, y1 = (float(v) for v in rect)
+    big_x, big_y = max(abs(x0), abs(x1)), max(abs(y0), abs(y1))
+    amx, bmy, cmy, bmx = a * mx, b * my, c * my, b * mx
+    fq = 0.5 * amx * mx + 0.5 * cmy * my + bmx * my
+    fm = 0.5 * (amx * mx).abs() + 0.5 * (cmy * my).abs() + (bmx * my).abs()
+    form = (
+        (f[:, 0] == 0.5 * a) & (f[:, 1] == 0.5 * c) & (f[:, 2] == b)
+        & ((f[:, 3] + (amx + bmy)).abs() <= CULL_COEF_TOL * (amx.abs() + bmy.abs()))
+        & ((f[:, 4] + (cmy + bmx)).abs() <= CULL_COEF_TOL * (cmy.abs() + bmx.abs()))
+        & ((f[:, 5] - fq).abs() <= CULL_COEF_TOL * fm)
+    )
+    det = a * c - b * b
+    usable = form & (a > 0) & (c > 0) & (det > CULL_DET_MIN * a * c)
+    ux, uy = big_x + mx.abs(), big_y + my.abs()
+    mag = 0.5 * a * ux * ux + 0.5 * c * uy * uy + b.abs() * ux * uy + nlo.abs()
+    reach = S2_REACH + CULL_S2_SLACK * mag - nlo
+    ex = torch.sqrt(2.0 * reach * c / det) * (1.0 + CULL_EXT_SLACK) + CULL_EXT_SLACK
+    ey = torch.sqrt(2.0 * reach * a / det) * (1.0 + CULL_EXT_SLACK) + CULL_EXT_SLACK
+    outside = (torch.maximum(x0 - mx, mx - x1) > ex) | (torch.maximum(y0 - my, my - y1) > ey)
+    return ~(usable & ((reach <= 0) | outside))
 
 
 def tiled_forward_plain(
@@ -300,19 +368,25 @@ def tiled_backward(
         raise ValueError("tiled_backward: inputs must be contiguous")
     if feats.data_ptr() % 16:
         raise ValueError("tiled_backward: feats must be 16-byte aligned")
-    out = torch.zeros((feats.shape[0], NUM_GRAD_COLS), dtype=torch.float32, device=dev)
     if num_tiles == 0:
-        return out
+        return torch.zeros((feats.shape[0], NUM_GRAD_COLS), dtype=torch.float32, device=dev)
+    # the kernel writes every row, zeros where no tile walks
+    out = torch.empty((feats.shape[0], NUM_GRAD_COLS), dtype=torch.float32, device=dev)
+    # the cull's constants, in the order of the kernel's struct Cull
+    cull = (ctypes.c_float * 6)(
+        S2_REACH, CULL_COEF_TOL, CULL_S2_SLACK, 1.0 + CULL_EXT_SLACK, CULL_EXT_SLACK, CULL_DET_MIN
+    )
     lib = _build.load("tile_backward")
     fn = lib.egs_tile_backward
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
         + [ctypes.c_int, ctypes.c_void_p]
     )
     err = fn(
         feats.data_ptr(), tile_offsets.data_ptr(), basis.data_ptr(), num_tiles, p,
-        g_img.data_ptr(), g_t.data_ptr(), t_fin.data_ptr(), last.data_ptr(),
+        warp_block_side(p), feats.shape[0], cull, g_img.data_ptr(), g_t.data_ptr(),
+        t_fin.data_ptr(), last.data_ptr(),
         out.data_ptr(),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,

@@ -611,10 +611,10 @@ def _reduce_dense(
        scatter of ``arange`` (JAX sorts ``(dense, iota)`` for it);
     2. one row gather into dense-slot order; slots at sorted positions past
        the capacity read zero (they are dead, or the step truncated);
-    3. ``group_reduce`` over population A (``b_small`` rows per Gaussian)
-       and over population B (M rows per slot), B's sums folded into their
-       Gaussians by a gather at ``ov_rank``; one population: one
-       ``group_reduce`` of M rows per Gaussian."""
+    3. one ``group_reduce`` over population A (``b_small`` rows per
+       Gaussian) and population B (M rows per slot), B's sums folded into
+       their Gaussians by a gather at ``ov_rank``; one population: M rows
+       per Gaussian."""
     icap, d_total = rows.shape[0], dense.shape[0]
     q = torch.empty_like(dense).scatter_(
         0, dense, torch.arange(d_total, dtype=dense.dtype, device=dense.device)
@@ -624,8 +624,8 @@ def _reduce_dense(
     del q
     if in_ov is not None:
         b_eff = (d_total - ov_cap * m) // c
-        dsum = group_reduce_kernel.group_reduce(grid[: c * b_eff], b_eff)
-        ov_sum = group_reduce_kernel.group_reduce(grid[c * b_eff :], m)
+        sums = group_reduce_kernel.group_reduce(grid, b_eff, tail=(m, ov_cap))
+        dsum, ov_sum = sums[:c], sums[c:]
         fold = ov_sum[torch.clamp(ov_rank, max=ov_cap - 1).to(torch.int64)]
         dsum = dsum + torch.where(in_ov[:, None], fold, torch.zeros_like(fold))
     else:

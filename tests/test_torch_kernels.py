@@ -32,7 +32,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _scene(rng, n, height, width, device):
+def _scene(rng, n, height, width, device, opacity=(0.05, 0.99)):
     """Screen-space Gaussians of mixed size and opacity."""
     m2d = rng.uniform([-8, -8], [width + 8, height + 8], size=(n, 2))
     L = rng.normal(size=(n, 2, 2)) * rng.uniform(0.3, 4.0, size=(n, 1, 1))
@@ -42,7 +42,7 @@ def _scene(rng, n, height, width, device):
     b = 0.5 * (cov[:, 0, 0] + cov[:, 1, 1])
     rad = np.ceil(3.0 * np.sqrt(b + np.sqrt(np.maximum(b * b - det, 0.01))))
     col = rng.uniform(size=(n, 3))
-    opa = rng.uniform(0.05, 0.99, size=n)
+    opa = rng.uniform(*opacity, size=n)
     dep = rng.uniform(1.0, 10.0, size=n)
     return [torch.as_tensor(x, dtype=torch.float32, device=device)
             for x in (m2d, con, col, opa, dep, rad)]
@@ -156,6 +156,50 @@ def test_tiled_backward_matches_plain(cuda, rng, tile_size):
     assert (err[:11] <= 1e-4 * scale[:11]).all(), (err / scale.clamp(min=1e-30)).tolist()
 
 
+@pytest.mark.parametrize("tile_size", [8, 12, 16, 32])
+def test_tiled_backward_low_opacity(cuda, rng, tile_size):
+    """Opacities 0.01-0.1: pixels rarely saturate, so each pixel walks to
+    its own last contributor and the 64-pixel warps' horizons differ from
+    their tile's (tile 8 is one warp; tile 12: P = 144, no square of a
+    multiple of 8, so the consecutive layout, its last warp part empty).
+    Against the plain version within 1e-4 of each column's largest
+    magnitude; a second launch gives the same bits; every row past a tile's
+    horizon and past ``offsets[-1]`` is zero though the output is allocated
+    uninitialised (its memory first filled with NaN)."""
+    h, w = 192, 224
+    m2d, con, col, opa, dep, rad = _scene(rng, 20000, h, w, cuda, opacity=(0.01, 0.1))
+    geom, binning, feats = trt._prepare(
+        m2d, con, col, opa, rad, dep, h, w, tile_size, 4, 4, isect_cap=10**6,
+    )
+    basis = trt.tile_pixel_basis(geom, cuda)
+    offs = binning.tile_offsets
+    _, t_fin, last = tr.tiled_forward(feats, offs, basis)
+    t, p = t_fin.shape
+    padded = torch.cat([last, torch.full((t, 1), -1, dtype=last.dtype, device=cuda)], 1)
+    warp_h = padded[:, tr.warp_pixels(p).to(cuda)].amax(2)
+    assert p == 64 or (warp_h < last.amax(1, keepdim=True)).any()  # tile 8: one warp
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = (feats, offs, basis, torch.randn((t, p, 3), generator=gen, device=cuda),
+            torch.randn((t, p), generator=gen, device=cuda), t_fin, last)
+    stale = torch.full((feats.shape[0], tr.NUM_GRAD_COLS), float("nan"), device=cuda)
+    del stale  # the allocator hands its block to the kernel's output
+    got = tr.tiled_backward(*args)
+    want = tr.tiled_backward_plain(*args)
+    again = tr.tiled_backward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    scale = want.abs().amax(dim=0)
+    err = (got - want).abs().amax(dim=0)
+    assert (err[:11] <= 1e-4 * scale[:11]).all(), (err / scale.clamp(min=1e-30)).tolist()
+    stop = torch.maximum(offs[:-1], torch.minimum(last.amax(1) + 1, offs[1:])).tolist()
+    ends = offs[1:].tolist()
+    assert stop != ends  # some tile has rows past its horizon
+    for s, e in zip(stop, ends):
+        assert (got[s:e] == 0).all()
+    assert int(offs[-1]) < got.shape[0] and (got[int(offs[-1]):] == 0).all()
+    assert (got[:, 11:] == 0).all()
+
+
 def test_segsum_band_matches_plain(cuda, rng):
     """Rows grouped like the backward's flat-sorted gradient rows (groups of
     1-16 rows, then one group far longer than LOOK): each row's sum over
@@ -213,15 +257,24 @@ def test_monotone_expand_matches_plain(cuda, rng, c):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("b", [2, 9, 16])
-def test_group_reduce_matches_plain(cuda, rng, b):
-    """Row-order sums: equal to the plain version bit for bit."""
-    x = torch.as_tensor(rng.normal(size=(100003 * b, 16)).astype(np.float32), device=cuda)
+@pytest.mark.parametrize("b,tail", [
+    (1, None), (2, None), (3, None), (4, None), (9, None), (16, None), (17, None),
+    (4, (16, 3969)), (9, (16, 101)), (17, (16, 5)), (3, (17, 1001)), (20, (1, 7)),
+])
+def test_group_reduce_matches_plain(cuda, rng, b, tail):
+    """Row-order sums: equal to the plain version bit for bit, at every kind
+    of instantiation (b = 2, 4, 9, 16 of their own, any other size the
+    chunked loop; a tail of 16 rows of its own, any other the loop), with
+    and without a tail population in the same launch, and a group count
+    that is no multiple of a block's 64 groups."""
+    tail_rows = tail[0] * tail[1] if tail else 0
+    x = torch.as_tensor(rng.normal(size=(100003 * b + tail_rows, 16)).astype(np.float32), device=cuda)
     before = gr.launches
-    got = gr.group_reduce(x, b)
-    want = gr.group_reduce_plain(x, b)
+    got = gr.group_reduce(x, b, tail=tail)
+    want = gr.group_reduce_plain(x, b, tail=tail)
     torch.cuda.synchronize()
     assert gr.launches == before + 1
+    assert got.shape == (100003 + (tail[1] if tail else 0), 16)
     assert torch.equal(got, want)
 
 
@@ -263,6 +316,8 @@ def test_wrappers_check_their_inputs(cuda):
         seg.monotone_expand(rows, g[:3], present)
     with pytest.raises(ValueError):
         gr.group_reduce(rows, 3)
+    with pytest.raises(ValueError):
+        gr.group_reduce(rows, 2, tail=(3, 1))
     with pytest.raises(ValueError):
         gr.group_reduce(rows.t().contiguous().t(), 2)
     with pytest.raises(ValueError):
