@@ -23,8 +23,10 @@ its offline viewer, the first main path of the port:
    every frame must fit its intersection capacity, and both kernels'
    launch counts must rise during the requests;
 6. numbers: request latency, each kernel's and plain version's time
-   (CUDA events), its lower bound on this card, launches per frame and
-   peak device memory;
+   (CUDA events; ``binkeys`` also on the device alone), its lower bound on
+   this card, the forward's work counts (pairs reached and composited,
+   (warp, row) pairs its cull keeps, rows walked per tile), launches per
+   frame and peak device memory;
 
 and then through its trainer, the second:
 
@@ -32,10 +34,10 @@ and then through its trainer, the second:
    (``init_gaussian_state``, SH 3) and four 800x800 ring cameras whose
    targets the port's forward renders from a "ground-truth" copy with
    other colours, opacities and view-dependent SH;
-8. kernel checks at the inputs of one real train step: ``tiled_backward``
-   and ``segsum_band`` against their plain versions, and the whole step's
-   parameter gradients with all four kernels against the same step with
-   the four plain versions;
+8. kernel checks at the inputs of one real train step: ``binkeys``,
+   ``tiled_backward`` and ``segsum_band`` against their plain versions,
+   and the whole step's parameter gradients with all four kernels against
+   the same step with the four plain versions;
 9. train: the port's ``train()`` for 40 steps on cuda with
    ``configs/nerf_synthetic.yaml``'s values and a compressed schedule
    (printed), so densify runs at steps 20, 30, 40 and the opacity reset at
@@ -44,10 +46,10 @@ and then through its trainer, the second:
    Adam state;
 10. numbers: step time, both backward kernels' and plain versions' times
    and bounds, the backward's work counts (pairs walked from its warps'
-   horizons, composited, kept by its cull), peak device memory, a profile
-   of three steps on the state after the opacity reset, and
-   ``tiled_backward`` checked, timed and counted again on that step's
-   inputs;
+   horizons, composited, kept by its cull), ``tiled_forward`` checked,
+   timed and counted on the step's inputs, peak device memory, a profile
+   of three steps on the state after the opacity reset, and both tile
+   kernels checked, timed and counted again on that step's inputs;
 
 and then through the trainer under the other backward reductions
 (``rasterize_tiled.BWD_REDUCE``), the main paths of this part of the port:
@@ -68,8 +70,11 @@ and then through the trainer under the other backward reductions
    back to back and on the device alone behind a device-side wait, beside
    the library's sum of each population;
 12. with ``--ab-parent DIR`` (another checkout, the parent commit): its
-   ``tiled_backward`` and ``group_reduce`` beside this tree's on the same
-   recorded inputs, outputs compared, timed parent, change, change, parent.
+   ``tiled_forward`` (the served frame, phase 8's and the post-reset
+   inputs), ``tiled_backward``, ``group_reduce`` and ``binkeys`` (the served
+   frame's and phase 8's binning; the parent's wrapper takes one population
+   a launch) beside this tree's on the same recorded inputs, outputs
+   compared, timed parent, change, change, parent.
 
 Then one JSON line of the seven kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
@@ -110,9 +115,15 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # f32 operations per unit of work, counted from the kernels' sources:
 # binkeys per tested window cell (four clamped edge minima of the
-# quadratic, the inside test, the compare); tiled_forward per (pixel,
-# intersection) pair reached (7-term polynomial, exp, eligibility tests)
+# quadratic, the inside test, the compare)
 BINKEYS_OPS_PER_CELL = 75
+# tiled_forward per composited (pixel, intersection) pair: the eligibility
+# test (~20: the 7-term polynomial, 13, its reach test, exp, the clamp and
+# the two tests), 1 - alpha and the new T, the stop test, the weight and
+# three multiply-adds (two operations each)
+FORWARD_OPS_PER_COMPOSITED = 30
+# the older yardstick charged the eligibility test to every pair reached,
+# composited or not; [6] prints it beside the bound
 FORWARD_OPS_PER_PAIR = 20
 # tiled_backward per composited (pixel, intersection) pair: the eligibility
 # test (~20, as the forward), ~39 operations of gradient math and 11 adds
@@ -249,7 +260,7 @@ def near_decision(feats, offsets, basis, t: int, p: int) -> bool:
     return False
 
 
-def check_binkeys(calls, plain) -> float:
+def check_binkeys(calls) -> float:
     """Kernel against plain version on every recorded call: keys, flats
     and counts must be equal. Returns the largest absolute difference."""
     from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
@@ -257,8 +268,8 @@ def check_binkeys(calls, plain) -> float:
     max_err = 0
     for args, kwargs in calls:
         got = bk.binkeys(*args, **kwargs)
-        want = plain(*args, **kwargs)
-        for name, g, w in zip(("keys", "flats", "count_small", "count_full"), got, want):
+        want = bk.binkeys_plain(*args, **kwargs)
+        for name, g, w in zip(("keys", "flats", "counts"), got, want):
             diff = int((g != w).sum())
             if g.numel():
                 max_err = max(max_err, int((g.long() - w.long()).abs().max()))
@@ -270,6 +281,16 @@ def check_binkeys(calls, plain) -> float:
     return float(max_err)
 
 
+def describe_binkeys(call) -> str:
+    from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+
+    (fgeo, igeo), kw = call
+    tail = kw.get("tail")
+    return (f"{fgeo.shape[1]} rows with n_keys {kw['n_keys']}, "
+            f"{int((igeo[6] == bk.POP_TAIL).sum())} of them in the tail of "
+            f"{0 if tail is None else tail.shape[0]} slots with m {kw['m']}")
+
+
 def compare_frames(got_rgb, got_t, want_rgb, want_t):
     """Per-pixel agreement mask of two forward outputs within TOL."""
     d_rgb = (got_rgb - want_rgb).abs().amax(dim=-1)
@@ -277,35 +298,40 @@ def compare_frames(got_rgb, got_t, want_rgb, want_t):
     return (d_rgb <= TOL) & (d_t <= TOL), float(d_rgb.max())
 
 
-def check_forward(call, plain):
-    """Kernel against plain version on the recorded forward call. Pixels
+def check_forward(args, tag: str = "4", what: str = "the served 800x800 frame"):
+    """Kernel against plain version on recorded forward inputs. Pixels
     outside TOL, and pixels inside it whose last contributor differs, are
     flipped decisions: each must replay an eligibility or stop decision
-    within rounding of its edge. Returns the largest rgb difference."""
+    within rounding of its edge. Returns (largest rgb difference, plain ms
+    of the one plain call)."""
     import torch
 
     from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
 
-    (feats, offsets, basis), _ = call
+    feats, offsets, basis = args
     k_rgb, k_t, k_last = tr.tiled_forward(feats, offsets, basis)
-    p_rgb, p_t, p_last = plain(feats, offsets, basis)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    p_rgb, p_t, p_last = tr.tiled_forward_plain(feats, offsets, basis)
+    end.record()
     torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     agree, max_err = compare_frames(k_rgb, k_t, p_rgb, p_t)
     n_px = agree.numel()
     n_bad = int((~agree).sum())
     last_only = agree & (k_last != p_last)
     share = 1.0 - n_bad / n_px
-    log(f"[4] tiled_forward: {n_px - n_bad}/{n_px} pixels within {TOL} (share "
+    log(f"[{tag}] tiled_forward on {what}: {n_px - n_bad}/{n_px} pixels within {TOL} (share "
         f"{share:.6f}), max rgb |diff| {max_err:.3e}; {int(last_only.sum())} more "
         "agree in rgb but differ in last contributor")
     flipped = ((~agree) | last_only).nonzero().tolist()
     replayed = flipped[:64]
     explained = sum(1 for t, p in replayed if near_decision(feats, offsets, basis, t, p))
-    log(f"[4] tiled_forward: {explained} of {len(replayed)} replayed flipped pixels "
+    log(f"[{tag}] tiled_forward: {explained} of {len(replayed)} replayed flipped pixels "
         "have a stop/eligibility decision within rounding of its edge")
-    check(share >= MIN_AGREE, f"tiled_forward agrees on only {share:.6f} of pixels")
-    check(explained == len(replayed), "tiled_forward: unexplained pixel differences")
-    return max_err
+    check(share >= MIN_AGREE, f"tiled_forward agrees on only {share:.6f} of pixels on {what}")
+    check(explained == len(replayed), f"tiled_forward: unexplained pixel differences on {what}")
+    return max_err, plain_ms
 
 
 # ------------------------------------------------------------------ phase 6
@@ -343,52 +369,142 @@ def queued_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def binkeys_bound(calls):
-    """(bytes, f32 ops) the binkeys calls of one frame must move and do."""
+    """(bytes, f32 ops) the binkeys calls of one frame must move and do:
+    the rows and the tail's ids read once, every key, flat and count
+    written once; the exact test of each cell the data needs tested (a
+    row's first n_keys cells below its count, none for a row of the tail;
+    a tail slot's cells below its row's count, none for an empty slot)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+
     nbytes = ops = 0
-    for args, kwargs in calls:
-        fgeo, igeo = args
-        n, m, n_keys = fgeo.shape[1], kwargs["m"], kwargs["n_keys"]
-        nbytes += fgeo.numel() * 4 + igeo.numel() * 4 + n * n_keys * 12 + n * 8
-        ops += BINKEYS_OPS_PER_CELL * int(igeo[3].clamp(max=m).sum())
+    for (fgeo, igeo), kw in calls:
+        n, m, n_keys, tail = fgeo.shape[1], kw["m"], kw["n_keys"], kw.get("tail")
+        n_tail = 0 if tail is None else tail.shape[0]
+        nbytes += (fgeo.numel() + igeo.numel()) * 4 + n_tail * 8 \
+            + (n_keys * n + m * n_tail) * 12 + n * 4
+        count = igeo[3].long()
+        cells = int(torch.where(igeo[6] == bk.POP_TAIL, 0, count.clamp(max=n_keys)).sum())
+        if tail is not None:
+            cells += int(count[tail[tail < n]].clamp(max=m).sum())
+        ops += BINKEYS_OPS_PER_CELL * cells
     return nbytes, ops
 
 
-def forward_pairs(feats, offsets, basis, max_elems: int = 1 << 26) -> int:
-    """(pixel, intersection) pairs the forward walk reaches on this data:
-    each pixel's intersections up to and including the one that stops it."""
+def forward_counts(feats, offsets, basis) -> dict:
+    """The forward's work on this data, in the kernel's layout of 64-pixel
+    warps (``tile_raster.warp_pixels``): ``reached``, the (pixel,
+    intersection) pairs each pixel's walk reaches (its tile's rows up to
+    the one that stops it, or all of them); ``composited``, those it
+    composites; ``warp_steps``, the (warp, intersection) pairs up to each
+    warp's last stop (the rows its farthest pixel reaches); ``warp_kept``,
+    those the per-warp cull keeps (``warp_reach_plain`` with the tile's bound
+    on |px|, |py|, as the kernel tests them), the rows its warps walk; the
+    rows each tile walks, up to its last pixel's stop
+    (``walk_max``, ``walk_p90``, ``walk_mean``), and the rows its list holds
+    (``list_mean``). Transmittance in f64, so a pixel whose T lands within
+    rounding of 1e-4 may count one row more or less than the kernel's."""
     import torch
 
-    from easy_gaussian_splatting_torch.ops.kernels.tile_raster import SIGMA_EPS
+    from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+    from easy_gaussian_splatting_torch.ops.rasterize_ref import ALPHA_CLAMP, ALPHA_THRESH, T_EPS
 
+    dev = feats.device
     offs = offsets.long()
-    counts = (offs[1:] - offs[:-1]).tolist()
-    p = basis.shape[0]
-    total = 0
-    for t in range(len(counts)):
-        n = counts[t]
-        if n == 0:
+    lengths = offs[1:] - offs[:-1]
+    t, p = lengths.shape[0], basis.shape[0]
+    idx = tr.warp_pixels(p).to(dev)  # [warps, 64] pixel ids, p: none
+
+    def rect(pix):
+        pix = pix[pix < p]
+        return tuple(float(v) for v in (basis[pix, 3].min(), basis[pix, 3].max(),
+                                        basis[pix, 4].min(), basis[pix, 4].max()))
+
+    rects = [rect(i) for i in idx]
+    # the kernel bounds every row's box by the largest |px|, |py| of the tile
+    bound = (max(max(abs(r[0]), abs(r[1])) for r in rects),
+             max(max(abs(r[2]), abs(r[3])) for r in rects))
+    n = dict(reached=0, composited=0, warp_steps=0, warp_kept=0, tiles=t,
+             list_mean=float(lengths.double().mean()))
+    walk = torch.zeros(t, dtype=torch.long, device=dev)
+    for t0, t1, longest in tr._tile_batches(lengths.tolist(), p, 1 << 24):
+        if longest == 0:
             continue
-        s = int(offs[t])
-        chunk = max(1, max_elems // p)
-        T = torch.ones(p, dtype=torch.float64, device=feats.device)
-        alive = torch.ones(p, dtype=torch.bool, device=feats.device)
-        for c0 in range(0, n, chunk):
-            f = feats[s + c0 : s + min(n, c0 + chunk)]
-            s2 = basis[:, :7] @ f[:, :7].T
-            nlo = f[:, 6][None, :]
-            alpha = torch.exp(-torch.maximum(s2, nlo)).clamp(max=0.999)
-            elig = (s2 >= nlo - SIGMA_EPS) & (alpha >= 1.0 / 255.0)
-            om = torch.where(elig, 1.0 - alpha, torch.ones_like(alpha)).double()
-            excl = torch.cumprod(torch.cat([T[:, None], om[:, :-1]], dim=1), dim=1)
-            stop = elig & (excl * om < 1e-4)
-            stopped_before = torch.cumsum(stop.int(), dim=1) - stop.int() > 0
-            reached = ~stopped_before & alive[:, None]
-            total += int(reached.sum())
-            alive = alive & ~stop.any(dim=1)
-            T = excl[:, -1] * om[:, -1]
-            if not bool(alive.any()):
-                break
-    return total
+        lane = torch.arange(longest, device=dev)
+        in_range = lane[None, :] < lengths[t0:t1, None]
+        gpos = offs[t0:t1, None] + lane[None, :]
+        f = feats[torch.where(in_range, gpos, torch.zeros_like(gpos))]
+        s2 = tr._sigma2(f, basis)  # [B, P, L]
+        nlo = f[..., 6][:, None, :]
+        alpha = torch.clamp(torch.exp(-torch.maximum(s2, nlo)), max=ALPHA_CLAMP)
+        elig = (s2 >= nlo - tr.SIGMA_EPS) & (alpha >= ALPHA_THRESH) & in_range[:, None, :]
+        del s2, nlo
+        incl = torch.cumprod(torch.where(elig, 1.0 - alpha.double(), 1.0), dim=-1)
+        del alpha
+        stop = elig & (incl < T_EPS)  # T after the row, were it composited
+        del incl
+        stopped = (torch.cumsum(stop, dim=-1, dtype=torch.int32) - stop.to(torch.int32)) > 0
+        reached = in_range[:, None, :] & ~stopped
+        n["reached"] += int(reached.sum())
+        n["composited"] += int((elig & ~stopped & ~stop).sum())
+        del elig, stop, stopped
+        reach_len = reached.sum(-1)  # [B, P]: each pixel's walk is a prefix
+        del reached
+        padded = torch.cat([reach_len, torch.zeros_like(reach_len[:, :1])], 1)
+        warp_len = padded[:, idx].amax(2)  # [B, warps]
+        walk[t0:t1] = reach_len.amax(1)
+        n["warp_steps"] += int(warp_len.sum())
+        rows = f.view(-1, f.shape[-1])
+        for k, box in enumerate(rects):
+            walked = lane[None, :] < warp_len[:, k, None]
+            kept = tr.warp_reach_plain(rows, box, bound).view(walked.shape)
+            n["warp_kept"] += int((walked & kept).sum())
+    n.update(walk_max=int(walk.max()), walk_mean=float(walk.double().mean()),
+             walk_p90=float(torch.quantile(walk.double(), 0.9)), walk_rows=int(walk.sum()))
+    return n
+
+
+def log_forward_counts(tag: str, what: str, n: dict) -> None:
+    log(f"[{tag}] tiled_forward work on {what}: (pixel, intersection) pairs reached "
+        f"{n['reached']}, composited {n['composited']}; (warp, intersection) pairs to the "
+        f"64-pixel warps' last stops {n['warp_steps']}, kept by the cull {n['warp_kept']}; rows "
+        f"walked per tile max {n['walk_max']}, p90 {n['walk_p90']:.0f}, mean {n['walk_mean']:.1f} "
+        f"(listed per tile, mean {n['list_mean']:.1f}) over {n['tiles']} tiles")
+
+
+def forward_numbers(args, tag: str, what: str) -> float:
+    """``tiled_forward`` on recorded inputs: checked against its plain
+    version, timed (CUDA events over 20 launches), its work counted and its
+    bound. Returns its ms."""
+    from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+
+    check_forward(args, tag, what)
+    ms = cuda_ms(lambda: tr.tiled_forward(*args), 20)
+    work = forward_counts(*args)
+    (bound, by), (old_bound, old_by) = forward_bound(args, work)
+    log(f"[{tag}] tiled_forward on {what}: {ms:.4f} ms, bound {bound:.4f} ms ({by}; the old "
+        f"yardstick gave {old_bound:.4f} ms ({old_by})); {int(args[1][-1])} listed rows")
+    log_forward_counts(tag, what, work)
+    return ms
+
+
+def forward_bound(args, n: dict):
+    """Bytes: each feature row that some pixel of its tile reaches read once
+    (``walk_rows``: the rows past a tile's last stop are not needed), the
+    offsets and the basis, and the outputs (rgb, T, last: 20 bytes a pixel)
+    written once. Operations: those of the composited pairs only
+    (``forward_counts``); a pair that is not composited does not change the
+    result, and the kernel's cull skips most of them without per-pixel
+    work. Returns the bound and, beside it, the old yardstick (every pair
+    reached, and every row of the feature array)."""
+    feats, offsets, basis = args
+    t, p = offsets.numel() - 1, basis.shape[0]
+    small = offsets.numel() * 4 + basis.numel() * 4 + t * p * 20
+    new = bound_ms(n["walk_rows"] * feats.shape[1] * 4 + small,
+                   FORWARD_OPS_PER_COMPOSITED * n["composited"])
+    old = bound_ms(feats.numel() * 4 + small, FORWARD_OPS_PER_PAIR * n["reached"])
+    return new, old
 
 
 def profile_device(fn, reps: int, what: str, tag: str, top: int = 14) -> None:
@@ -645,7 +761,7 @@ def zero_counts() -> None:
     seg.compact_launches = seg.expand_launches = gr.launches = 0
 
 
-PER_STEP = {"binkeys": 2, "tiled_forward": 1, "tiled_backward": 1, "segsum_band": 1}
+PER_STEP = {"binkeys": 1, "tiled_forward": 1, "tiled_backward": 1, "segsum_band": 1}
 
 
 def train_recorded(cfg, scene, device):
@@ -1105,7 +1221,7 @@ def train_reduction(name, xyzs, rgbs, frames, device, seed):
           f"{name}: {rec['densify']} densify events and {rec['reset']} resets ran, want 1 and 0")
     own = dict(REDUCE_KERNELS[name], tiled_forward=1, tiled_backward=1)
     if name != "dense":
-        own["binkeys"] = 2
+        own["binkeys"] = 1
     never = [k for k in ("segsum_band", "segsum_compact", "monotone_expand", "group_reduce")
              if k not in own] + (["binkeys"] if name == "dense" else [])
     short = [i + 1 for i, s in enumerate(steps) if any(s["launches"][k] < n for k, n in own.items())]
@@ -1139,10 +1255,10 @@ def train_reduction(name, xyzs, rgbs, frames, device, seed):
 
 # ----------------------------------------------------------------- phase 12
 def parent_kernels(root: Path):
-    """The ``tile_raster`` and ``group_reduce`` wrapper modules of another
-    checkout of this repository, imported as a package of their own (they
-    build their kernels from that checkout's sources into its own build
-    directory), so that both trees' kernels run in one process."""
+    """The ``tile_raster``, ``group_reduce`` and ``binkeys`` wrapper modules of
+    another checkout of this repository, imported as a package of their own
+    (they build their kernels from that checkout's sources into its own
+    build directory), so that both trees' kernels run in one process."""
     import importlib
     import importlib.util
 
@@ -1153,21 +1269,65 @@ def parent_kernels(root: Path):
     module = importlib.util.module_from_spec(spec)
     sys.modules[name] = module
     spec.loader.exec_module(module)
-    return (importlib.import_module(f"{name}.ops.kernels.tile_raster"),
-            importlib.import_module(f"{name}.ops.kernels.group_reduce"))
+    return tuple(importlib.import_module(f"{name}.ops.kernels.{k}")
+                 for k in ("tile_raster", "group_reduce", "binkeys"))
 
 
-def ab_compare(root: Path, bw_inputs: dict, gr_calls) -> None:
-    """Each redesigned kernel against the parent's on the same recorded
-    inputs: outputs compared, then timed parent, change, change, parent
-    (CUDA events over 20 launches each)."""
+def parent_binkeys(pbk, call):
+    """A recorded ``binkeys`` call as the parent's wrapper takes it, one
+    population a call: population a with livebase ``pop == 1``, then the
+    tail's rows gathered with livebase "the slot is not empty". Returns a
+    function that launches both and assembles the one call's outputs (keys,
+    flats, counts where the row is the tail's from the full window)."""
     import torch
 
+    from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+
+    (fgeo, igeo), kw = call
+    kw = dict(kw)
+    tail = kw.pop("tail")
+    pop = igeo[6]
+    igeo_a = torch.cat([igeo[:6], (pop == bk.POP_A).to(torch.int32)[None]])
+    calls = [((fgeo, igeo_a), kw)]
+    if tail is not None:
+        n = fgeo.shape[1]
+        row = torch.clamp(tail, max=n - 1)
+        igeo_b = torch.cat([igeo[:6, row], (tail < n).to(torch.int32)[None]])
+        calls.append(((fgeo[:, row].contiguous(), igeo_b), dict(kw, n_keys=kw["m"])))
+
+    def launch():
+        return [pbk.binkeys(*a, **k) for a, k in calls]
+
+    def assemble(outs):
+        (ka, fa, cs, cf), rest = outs[0], outs[1:]
+        keys = torch.cat([ka.reshape(-1)] + [o[0].reshape(-1) for o in rest])
+        flats = torch.cat([fa.reshape(-1)] + [o[1].reshape(-1) for o in rest])
+        return keys, flats, torch.where(pop == bk.POP_TAIL, cf, cs)
+
+    return launch, assemble
+
+
+def ab_compare(root: Path, fw_inputs: dict, bw_inputs: dict, gr_calls, bk_calls: dict) -> None:
+    """Each redesigned kernel against the parent's on the same recorded
+    inputs: outputs compared, then timed parent, change, change, parent
+    (CUDA events over 20 launches each; ``binkeys`` also on the device alone,
+    behind a device-side wait)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
     from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
     from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
 
-    ptr, pgr = parent_kernels(root)
+    ptr, pgr, pbk = parent_kernels(root)
     cases = []
+    for what, a in fw_inputs.items():
+        (p_rgb, p_t, p_last), (c_rgb, c_t, c_last) = ptr.tiled_forward(*a), tr.tiled_forward(*a)
+        log(f"[12] tiled_forward on {what}: change vs parent: last equal {torch.equal(p_last, c_last)}, "
+            f"final T equal {torch.equal(p_t, c_t)}, rgb max |diff| {float((p_rgb - c_rgb).abs().max()):.1e}")
+        check(torch.equal(p_last, c_last) and torch.equal(p_t, c_t),
+              f"tiled_forward differs from the parent's in last or T on {what}")
+        cases.append((f"tiled_forward on {what}", lambda a=a: ptr.tiled_forward(*a),
+                      lambda a=a: tr.tiled_forward(*a)))
     for what, a in bw_inputs.items():
         d = (ptr.tiled_backward(*a) - tr.tiled_backward(*a)).abs().amax(0)[: tr.NUM_LIVE_GRADS]
         log(f"[12] tiled_backward on {what}: change vs parent max |diff| per column "
@@ -1182,8 +1342,23 @@ def ab_compare(root: Path, bw_inputs: dict, gr_calls) -> None:
     cases.append(("group_reduce, the dense step's populations",
                   lambda: [pgr.group_reduce(x, b) for x, b in pops],
                   lambda: [gr.group_reduce(*a, **k) for a, k in gr_calls]))
+    queued = []
+    for what, call in bk_calls.items():
+        launch, assemble = parent_binkeys(pbk, call)
+        got = bk.binkeys(*call[0], **call[1])
+        want = assemble(launch())
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"binkeys differs from the parent's two launches on {what}")
+        log(f"[12] binkeys on {what}: keys, flats and counts equal to the parent's two launches")
+        change = lambda call=call: bk.binkeys(*call[0], **call[1])  # noqa: E731
+        cases.append((f"binkeys on {what} (parent: two launches)", launch, change))
+        queued.append((f"binkeys on {what}, device alone", launch, change))
     for what, parent, change in cases:
         p1, c1, c2, p2 = (cuda_ms(fn, 20) for fn in (parent, change, change, parent))
+        log(f"[12] {what}: parent {p1:.4f} ms, change {c1:.4f}, change {c2:.4f}, parent "
+            f"{p2:.4f}; change / parent {(c1 + c2) / (p1 + p2):.3f}")
+    for what, parent, change in queued:
+        p1, c1, c2, p2 = (queued_ms(fn, 20) for fn in (parent, change, change, parent))
         log(f"[12] {what}: parent {p1:.4f} ms, change {c1:.4f}, change {c2:.4f}, parent "
             f"{p2:.4f}; change / parent {(c1 + c2) / (p1 + p2):.3f}")
 
@@ -1255,11 +1430,11 @@ def run(args) -> dict:
     log(f"[4] capacity {state.capacity}, tuned isect_mult {cfg.isect_mult}, small_budget "
         f"{cfg.small_budget}, ov_frac {cfg.ov_frac}; 800x800 frame: {stats['num_isects']} "
         f"intersections (capacity {stats['isect_cap']})")
-    check(len(bk_calls) == 2 and len(fw_calls) == 1, "unexpected kernel call pattern")
-    bk_err = check_binkeys(bk_calls, bk.binkeys_plain)
+    check(len(bk_calls) == 1 and len(fw_calls) == 1, "unexpected kernel call pattern")
+    bk_err = check_binkeys(bk_calls)
     log(f"[4] binkeys: keys, flats and counts equal to the plain version "
-        f"({', '.join(str(tuple(a[0].shape)) for a, _ in bk_calls)} rows)")
-    fw_err = check_forward(fw_calls[0], tr.tiled_forward_plain)
+        f"({describe_binkeys(bk_calls[0])})")
+    fw_err, _ = check_forward(fw_calls[0][0])
 
     # ---- phase 5: serve
     zero_counts()
@@ -1331,23 +1506,27 @@ def run(args) -> dict:
     check(share >= MIN_AGREE, "served frame disagrees with the plain-kernel frame")
 
     # ---- phase 6: numbers
-    fa, fb = bk_calls
-    bk_ms = sum(cuda_ms(lambda a=a, k=k: bk.binkeys(*a, **k), 20) for a, k in (fa, fb))
-    bk_plain = sum(cuda_ms(lambda a=a, k=k: bk.binkeys_plain(*a, **k), 3, 1) for a, k in (fa, fb))
-    (feats, offs, basis), _ = fw_calls[0]
-    fw_ms = cuda_ms(lambda: tr.tiled_forward(feats, offs, basis), 20)
-    fw_plain = cuda_ms(lambda: tr.tiled_forward_plain(feats, offs, basis), 2, 1)
-    bk_bound, bk_by = bound_ms(*binkeys_bound(bk_calls))
-    pairs = forward_pairs(feats, offs, basis)
-    p, n_tiles = basis.shape[0], offs.shape[0] - 1
-    fw_bytes = feats.numel() * 4 + offs.numel() * 4 + basis.numel() * 4 + n_tiles * p * 20
-    fw_bound, fw_by = bound_ms(fw_bytes, FORWARD_OPS_PER_PAIR * pairs)
     log(f"[6] card: {card}")
-    log(f"[6] binkeys: {bk_ms:.4f} ms/frame (2 launches), plain {bk_plain:.4f} ms, "
-        f"bound {bk_bound:.4f} ms ({bk_by})")
+    for a, k in bk_calls:
+        launch = lambda a=a, k=k: bk.binkeys(*a, **k)  # noqa: E731
+        log(f"[6] binkeys launch, {describe_binkeys((a, k))}: "
+            f"{cuda_ms(launch, 20):.4f} ms (device alone {queued_ms(launch, 20):.4f})")
+    bk_ms = cuda_ms(lambda: [bk.binkeys(*a, **k) for a, k in bk_calls], 20)
+    bk_plain = cuda_ms(lambda: [bk.binkeys_plain(*a, **k) for a, k in bk_calls], 3, 1)
+    bk_bound, bk_by = bound_ms(*binkeys_bound(bk_calls))
+    fw_args = fw_calls[0][0]
+    fw_ms = cuda_ms(lambda: tr.tiled_forward(*fw_args), 20)
+    fw_plain = cuda_ms(lambda: tr.tiled_forward_plain(*fw_args), 2, 1)
+    fw_work = forward_counts(*fw_args)
+    (fw_bound, fw_by), (old_bound, old_by) = forward_bound(fw_args, fw_work)
+    log(f"[6] binkeys: {bk_ms:.4f} ms/frame ({len(bk_calls)} launches back to back), plain "
+        f"{bk_plain:.4f} ms, bound {bk_bound:.4f} ms ({bk_by})")
     log(f"[6] tiled_forward: {fw_ms:.4f} ms/frame, plain {fw_plain:.4f} ms, bound "
-        f"{fw_bound:.4f} ms ({fw_by}); {feats.shape[0]} intersection rows, {pairs} "
-        f"(pixel, intersection) pairs reached")
+        f"{fw_bound:.4f} ms ({fw_by}; the rows walked and the composited pairs; the old "
+        f"yardstick, every row and the {fw_work['reached']} pairs reached, gave "
+        f"{old_bound:.4f} ms ({old_by})); {int(fw_args[1][-1])} listed rows of "
+        f"{fw_args[0].shape[0]}")
+    log_forward_counts("6", "the served 800x800 frame", fw_work)
     log(f"[6] launches per rendered frame: binkeys {(served_counts[0] - after_build[0]) / frames:g}, "
         f"tiled_forward {(served_counts[1] - after_build[1]) / frames:g}")
     render = viewer.base_render_func  # the served closure, its capacities tuned
@@ -1396,9 +1575,15 @@ def run(args) -> dict:
     cfg8 = tune_inference_cfg(dataclasses.replace(tcfg), state0, f0["w2c"], f0["K"], 800, 800, margin=1.2)
     grad_fn = ttrainer.make_grad_fn(cfg8, ttrainer.get_render_fn(cfg8))
     step_kw = dict(height=800, width=800, sh_degree=3)
-    with recording(tr, "tiled_backward") as bw_calls, recording(seg, "segsum_band") as seg_calls:
+    with recording(tr, "tiled_backward") as bw_calls, recording(seg, "segsum_band") as seg_calls, \
+            recording(bk, "binkeys") as bk8_calls:
         got = grad_fn(state0, w2c0, K0, img0, mask0, **step_kw)
-    check(len(bw_calls) == 1 and len(seg_calls) == 1, "unexpected backward kernel call pattern")
+    check(len(bw_calls) == 1 and len(seg_calls) == 1 and len(bk8_calls) == 1,
+          "unexpected kernel call pattern")
+    check_binkeys(bk8_calls)
+    log(f"[8] binkeys: keys, flats and counts equal to the plain version "
+        f"({describe_binkeys(bk8_calls[0])})")
+    del bk8_calls  # phase 12 records the step's binning again
     log(f"[8] one step: isect_mult {cfg8.isect_mult}, {bw_calls[0][0][0].shape[0]} intersection "
         f"rows, {int(got[3].gt(0).sum())} visible gaussians")
     bw_err, bw_plain = check_backward(bw_calls[0])
@@ -1442,6 +1627,7 @@ def run(args) -> dict:
     log(f"[10] tiled_backward: {bw_ms:.4f} ms/step, plain {bw_plain:.4f} ms (one call), bound "
         f"{bw_bound:.4f} ms ({bw_by}) on phase 8's inputs")
     log_backward_counts("10", "phase 8's inputs", bw_work)
+    forward_numbers(bw_args[:3], "10", "phase 8's inputs")
     log(f"[10] segsum_band: {seg_ms:.4f} ms/step, plain {seg_plain:.4f} ms, bound "
         f"{seg_bound:.4f} ms ({seg_by}); {seg_args[0].shape[0]} rows")
     log("[10] launches per step in train(): " + ", ".join(
@@ -1468,6 +1654,7 @@ def run(args) -> dict:
         f"{post_bound:.4f} ms ({post_by}); {int(post_args[1][-1])} live rows of "
         f"{post_args[0].shape[0]}")
     log_backward_counts("10", "the post-reset inputs", post_work)
+    forward_numbers(post_args[:3], "10", "the post-reset inputs")
 
     # ---- phase 11: the other backward reductions, each checked on the
     # inputs of phase 8's step, then driven through a short train() run
@@ -1497,8 +1684,14 @@ def run(args) -> dict:
     # ---- phase 12 (with --ab-parent): the redesigned kernels against the
     # parent commit's on the same recorded inputs
     if args.ab_parent:
-        ab_compare(Path(args.ab_parent), {"phase 8's inputs": bw_args,
-                                          "the post-reset inputs": post_args}, gr_calls)
+        with recording(bk, "binkeys") as bk8_calls:
+            grad_fn(state0, w2c0, K0, img0, mask0, **step_kw)
+        ab_compare(
+            Path(args.ab_parent),
+            {"the served frame": fw_args, "phase 8's inputs": bw_args[:3],
+             "the post-reset inputs": post_args[:3]},
+            {"phase 8's inputs": bw_args, "the post-reset inputs": post_args}, gr_calls,
+            {"the served frame": bk_calls[0], "phase 8's binning": bk8_calls[0]})
 
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
@@ -1537,8 +1730,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--gaussians", type=int, default=1_000_000)
     parser.add_argument("--ab-parent", metavar="DIR",
-                        help="another checkout (the parent commit): time its tiled_backward and "
-                             "group_reduce beside this tree's on the same inputs (phase 12)")
+                        help="another checkout (the parent commit): time its tiled_forward, "
+                             "tiled_backward, group_reduce and binkeys beside this tree's on the "
+                             "same inputs (phase 12)")
     args = parser.parse_args(argv)
     try:
         import torch

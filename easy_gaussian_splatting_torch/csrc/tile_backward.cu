@@ -45,7 +45,8 @@
 // - a per-warp horizon: each warp walks down from the largest last_p of its
 //   64 pixels (__reduce_max_sync), not from the tile's, and skips every
 //   batch above it; the block stages rows only up to the largest of these;
-// - a per-warp cull: the lanes test 32 rows at a time, one each, for
+// - a per-warp cull (tile_cull.cuh, shared with the forward kernel): the
+//   lanes test 32 rows at a time, one each, for
 //   whether the Gaussian can reach the warp's pixel rectangle at all (the
 //   bounding box of its ellipse s2 <= 5.6, widened by a bound on the
 //   polynomial's rounding; beyond 5.6 exp(-s2) < 1/255 whatever the
@@ -75,57 +76,19 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_cull.cuh"
 #include "tile_eligibility.cuh"
 
 namespace {
 
+using namespace egs_tile;
+
 constexpr int BATCH = 128;          // intersections staged per pass
 constexpr int CHUNKS = BATCH / 32;  // rows of a batch a warp's ballot covers, 32 each
-constexpr int NF4 = 4;              // float4 per feature row (16 floats)
 constexpr int NG = 11;              // live gradient columns
 constexpr int OUT_COLS = 16;        // gradient row width
-constexpr int WARP_PIXELS = 64;     // two pixels per lane
 constexpr int MAX_THREADS = 512;    // 1024 pixels
 constexpr int MIN_BLOCKS = 2;       // per SM: at most 64 registers a thread
-constexpr unsigned FULL = 0xffffffffu;
-
-// The per-warp cull's constants, passed in by the wrapper, which defines
-// them (ops/kernels/tile_raster.py: S2_REACH and CULL_*) for this kernel
-// and for its plain twin warp_reach_plain: s2 beyond `reach` is not
-// eligible for any rounding of exp; the allowances for the polynomial's
-// coefficients against its conic and mean (pack_features rounds them
-// within a few ulp) and for the rounding of the polynomial and of the
-// cull's own arithmetic, relative to the sum of the terms' magnitudes; the
-// ellipse's extent is scaled by ext_scale (1 + ext_slack) and widened by
-// ext_slack; it is computed only where det / (a c) > det_min.
-struct Cull {
-    float reach, coef_tol, s2_slack, ext_scale, ext_slack, det_min;
-};
-
-// the cull's arithmetic, each operation rounded on its own as the plain
-// twin's is (never contracted into an FMA, whatever the build flags)
-__device__ __forceinline__ float mul(float x, float y) { return __fmul_rn(x, y); }
-__device__ __forceinline__ float add(float x, float y) { return __fadd_rn(x, y); }
-__device__ __forceinline__ float sub(float x, float y) { return __fsub_rn(x, y); }
-
-__device__ __forceinline__ void cp_async16(float4* dst, const float4* src)
-{
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-// copy n feature rows into shared memory asynchronously, as one commit group
-__device__ __forceinline__ void stage(float4* dst, const float4* src, int n)
-{
-    for (int k = threadIdx.x; k < n * NF4; k += blockDim.x) cp_async16(dst + k, src + k);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wait_staged()
-{
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // One step of the reduce-scatter: a lane keeps slots [0, H) of the half of
 // v[0..2H) that its partner (lane ^ H) does not keep, summed with the
@@ -178,83 +141,6 @@ __device__ __forceinline__ Pixel load_pixel(
         px.b4 = bp[4]; px.b5 = bp[5]; px.b6 = bp[6];
     }
     return px;
-}
-
-// Pixel k (0 or 1) of lane `lane` in warp `warp`: an 8x8 block of the tile
-// when its side is a multiple of 8 (`side8`, else 0), else 64 consecutive
-// pixels.
-__device__ __forceinline__ int pixel_of(int warp, int lane, int k, int side8)
-{
-    if (side8) {
-        const int blocks_x = side8 >> 3;
-        const int x = (warp % blocks_x) * 8 + (lane & 7);
-        const int y = (warp / blocks_x) * 8 + (lane >> 3) + 4 * k;
-        return y * side8 + x;
-    }
-    return warp * WARP_PIXELS + 32 * k + lane;
-}
-
-// The pixel centres of a warp: their bounding box and the largest |px|, |py|.
-struct Rect {
-    float x0, x1, y0, y1, X, Y;
-};
-
-__device__ __forceinline__ float warp_min(float v)
-{
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, off));
-    return v;
-}
-
-__device__ __forceinline__ float warp_max(float v)
-{
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-    return v;
-}
-
-// True when the basis row is (px^2, py^2, px py, px, py, 1, 1), which the
-// cull's bound assumes (tile_pixel_basis makes every row so).
-__device__ __forceinline__ bool plain_basis(const Pixel& p)
-{
-    return p.b0 == __fmul_rn(p.b3, p.b3) && p.b1 == __fmul_rn(p.b4, p.b4)
-        && p.b2 == __fmul_rn(p.b3, p.b4) && p.b5 == 1.0f && p.b6 == 1.0f;
-}
-
-// True when no pixel of the rectangle can find feature row r eligible: the
-// row's polynomial is the quadratic form of its conic (a, b, c) and mean
-// (mx, my) within coef_tol, so s2 - nlo at a pixel differs from the form
-// by at most s2_slack times the sum of the terms' magnitudes; a pixel with
-// s2 <= reach then lies in the ellipse form <= reach + slack - nlo, whose
-// bounding box the rectangle must meet. Any row that fails a premise (a
-// conic that is not positive definite, a polynomial that is not its form,
-// a value that is not finite) is kept. Every operation is the plain twin's
-// (warp_reach_plain), in its order and rounding, so both drop the same rows.
-__device__ __forceinline__ bool out_of_reach(const float4* r, const Rect& q, const Cull& k)
-{
-    const float4 f0 = r[0], f1 = r[1], f2 = r[2], f3 = r[3];
-    const float a = f2.w, b = f3.x, c = f3.y, mx = f1.w, my = f3.z, nlo = f1.z;
-    const float amx = mul(a, mx), bmy = mul(b, my), cmy = mul(c, my), bmx = mul(b, mx);
-    const float fq = add(add(mul(mul(0.5f, amx), mx), mul(mul(0.5f, cmy), my)), mul(bmx, my));
-    const float fm = add(add(mul(0.5f, fabsf(mul(amx, mx))), mul(0.5f, fabsf(mul(cmy, my)))),
-                         fabsf(mul(bmx, my)));
-    const bool form = f0.x == mul(0.5f, a) && f0.y == mul(0.5f, c) && f0.z == b
-        && fabsf(add(f0.w, add(amx, bmy))) <= mul(k.coef_tol, add(fabsf(amx), fabsf(bmy)))
-        && fabsf(add(f1.x, add(cmy, bmx))) <= mul(k.coef_tol, add(fabsf(cmy), fabsf(bmx)))
-        && fabsf(sub(f1.y, fq)) <= mul(k.coef_tol, fm);
-    const float det = sub(mul(a, c), mul(b, b));
-    if (!(form && a > 0.0f && c > 0.0f && det > mul(mul(k.det_min, a), c))) return false;
-    const float ux = add(q.X, fabsf(mx)), uy = add(q.Y, fabsf(my));
-    const float mag = add(add(add(mul(mul(mul(0.5f, a), ux), ux), mul(mul(mul(0.5f, c), uy), uy)),
-                              mul(mul(fabsf(b), ux), uy)),
-                          fabsf(nlo));
-    const float reach = sub(add(k.reach, mul(k.s2_slack, mag)), nlo);  // largest form a kept pixel has
-    if (reach <= 0.0f) return true;
-    const float ex = add(mul(__fsqrt_rn(__fdiv_rn(mul(mul(2.0f, reach), c), det)), k.ext_scale),
-                         k.ext_slack);
-    const float ey = add(mul(__fsqrt_rn(__fdiv_rn(mul(mul(2.0f, reach), a), det)), k.ext_scale),
-                         k.ext_slack);
-    return fmaxf(sub(q.x0, mx), sub(mx, q.x1)) > ex || fmaxf(sub(q.y0, my), sub(my, q.y1)) > ey;
 }
 
 // One pixel's step back over feature row r (f0, f1 its first two float4):
@@ -354,16 +240,8 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) tile_backward_kernel(
     if (lane == 0) horizon[warp] = warp_last;
 
     // the warp's pixel rectangle; no cull if a basis row is not plain
-    const float inf = __int_as_float(0x7f800000);
-    const bool va = ia < P, vb = ib < P;
     Rect rect;
-    rect.x0 = warp_min(fminf(va ? pa.b3 : inf, vb ? pb.b3 : inf));
-    rect.x1 = warp_max(fmaxf(va ? pa.b3 : -inf, vb ? pb.b3 : -inf));
-    rect.y0 = warp_min(fminf(va ? pa.b4 : inf, vb ? pb.b4 : inf));
-    rect.y1 = warp_max(fmaxf(va ? pa.b4 : -inf, vb ? pb.b4 : -inf));
-    rect.X = fmaxf(fabsf(rect.x0), fabsf(rect.x1));
-    rect.Y = fmaxf(fabsf(rect.y0), fabsf(rect.y1));
-    const bool cull = __all_sync(FULL, (!va || plain_basis(pa)) && (!vb || plain_basis(pb)));
+    const bool cull = warp_rect(pa, ia < P, pb, ib < P, &rect);
     __syncthreads();
     int tile_last = -1;
     for (int w = 0; w < nwarps; ++w) tile_last = max(tile_last, horizon[w]);

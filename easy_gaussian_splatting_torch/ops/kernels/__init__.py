@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their plain PyTorch
 versions, one module per kernel:
 
-- ``binkeys``      binning keys + exact ellipse/tile test (csrc/binkeys.cu)
+- ``binkeys``      binning keys of both populations + exact ellipse/tile
+                   test, one launch (csrc/binkeys.cu)
 - ``tile_raster``  per-tile forward compositing (csrc/tile_forward.cu) and
-                   its backward (csrc/tile_backward.cu)
+                   its backward (csrc/tile_backward.cu), with their shared
+                   per-warp cull (csrc/tile_cull.cuh)
 - ``segments``     sorted-segment reductions of gradient rows: segmented
                    suffix sums (csrc/segsum_band.cu), compacted group sums
                    (csrc/segsum_compact.cu) and their expansion to one row

@@ -37,12 +37,12 @@ ROW_CONIC = 11
 ROW_MY = 14
 NUM_GRAD_COLS = 16  # gradient row width (11 live columns, 16-byte aligned)
 NUM_LIVE_GRADS = 11
-MAX_TILE_PIXELS = 1024  # one thread per pixel in a block
-WARP_PIXELS = 64  # pixels of one warp of the backward kernel, two per lane
+MAX_TILE_PIXELS = 1024  # two pixels per thread, 512 threads in a block
+WARP_PIXELS = 64  # pixels of one warp of the tile kernels, two per lane
 # s2 beyond it: exp(-s2) < 1/255 for any rounding of exp, so not eligible;
-# the backward kernel's per-warp cull skips the rows whose s2 is beyond it
-# at every pixel of the warp, with these allowances (csrc/tile_backward.cu
-# takes them from `tiled_backward`, read at each call)
+# the tile kernels' per-warp cull skips the rows whose s2 is beyond it at
+# every pixel of the warp, with these allowances (csrc/tile_cull.cuh; the
+# wrappers pass them at each call)
 S2_REACH = 5.6
 CULL_COEF_TOL = 1e-5
 CULL_S2_SLACK = 3e-5
@@ -89,15 +89,15 @@ def _tile_batches(counts_h, p: int, max_pairs: int):
 
 def warp_block_side(p: int) -> int:
     """The tile's side when its ``p`` pixels are a square whose side is a
-    multiple of 8: the backward kernel then gives each warp an 8x8 block of
+    multiple of 8: the tile kernels then give each warp an 8x8 block of
     pixels. Else 0: each warp takes 64 consecutive pixels."""
     side = math.isqrt(p)
     return side if side * side == p and side % 8 == 0 else 0
 
 
 def warp_pixels(p: int) -> torch.Tensor:
-    """[W, 64] i64: the pixels of each of the backward kernel's W warps, in
-    its layout (slot ``32 k + lane`` is pixel ``k`` of lane ``lane``); ``p``
+    """[W, 64] i64: the pixels of each of the tile kernels' W warps, in
+    their layout (slot ``32 k + lane`` is pixel ``k`` of lane ``lane``); ``p``
     where a warp has no pixel."""
     warps = -(-p // WARP_PIXELS)
     w = torch.arange(warps)[:, None]
@@ -113,17 +113,30 @@ def warp_pixels(p: int) -> torch.Tensor:
     return torch.where(idx < p, idx, torch.full_like(idx, p))
 
 
-def warp_reach_plain(rows: torch.Tensor, rect) -> torch.Tensor:
-    """[R] bool: the backward kernel's per-warp cull (``out_of_reach`` in
-    ``csrc/tile_backward.cu``) on feature rows [R, 16] for the pixel centres'
+def _cull_constants():
+    """The cull's constants, read at each call, in the order of the kernels'
+    ``struct Cull`` (``csrc/tile_cull.cuh``)."""
+    return (ctypes.c_float * 6)(
+        S2_REACH, CULL_COEF_TOL, CULL_S2_SLACK, 1.0 + CULL_EXT_SLACK, CULL_EXT_SLACK, CULL_DET_MIN
+    )
+
+
+def warp_reach_plain(rows: torch.Tensor, rect, bound=None) -> torch.Tensor:
+    """[R] bool: the tile kernels' per-warp cull (``reach_box`` and ``misses``
+    in ``csrc/tile_cull.cuh``) on feature rows [R, 16] for the pixel centres'
     bounding box ``rect = (x0, x1, y0, y1)``: False where no pixel of the box
     can find the row eligible (every s2 there beyond ``S2_REACH``), True
-    where it may, or where the row fails a premise of the bound."""
+    where it may, or where the row fails a premise of the bound. ``bound =
+    (X, Y)``, the largest |px| and |py| the rounding allowance assumes, is
+    the box's own unless given: the forward kernel computes one box of each
+    row for all of a tile's warps, with the tile's."""
     f = rows.to(torch.float32)
     a, b, c = f[:, ROW_CONIC], f[:, ROW_CONIC + 1], f[:, ROW_CONIC + 2]
     mx, my, nlo = f[:, ROW_MX], f[:, ROW_MY], f[:, ROW_OPACITY]
     x0, x1, y0, y1 = (float(v) for v in rect)
-    big_x, big_y = max(abs(x0), abs(x1)), max(abs(y0), abs(y1))
+    if bound is None:
+        bound = (max(abs(x0), abs(x1)), max(abs(y0), abs(y1)))
+    big_x, big_y = (float(v) for v in bound)
     amx, bmy, cmy, bmx = a * mx, b * my, c * my, b * mx
     fq = 0.5 * amx * mx + 0.5 * cmy * my + bmx * my
     fm = 0.5 * (amx * mx).abs() + 0.5 * (cmy * my).abs() + (bmx * my).abs()
@@ -227,12 +240,13 @@ def tiled_forward(
     fn = lib.egs_tile_forward
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
         + [ctypes.c_int, ctypes.c_void_p]
     )
     err = fn(
         feats.data_ptr(), tile_offsets.data_ptr(), basis.data_ptr(),
-        num_tiles, p, rgb.data_ptr(), t_fin.data_ptr(), last.data_ptr(),
+        num_tiles, p, warp_block_side(p), _cull_constants(), rgb.data_ptr(),
+        t_fin.data_ptr(), last.data_ptr(),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -372,10 +386,6 @@ def tiled_backward(
         return torch.zeros((feats.shape[0], NUM_GRAD_COLS), dtype=torch.float32, device=dev)
     # the kernel writes every row, zeros where no tile walks
     out = torch.empty((feats.shape[0], NUM_GRAD_COLS), dtype=torch.float32, device=dev)
-    # the cull's constants, in the order of the kernel's struct Cull
-    cull = (ctypes.c_float * 6)(
-        S2_REACH, CULL_COEF_TOL, CULL_S2_SLACK, 1.0 + CULL_EXT_SLACK, CULL_EXT_SLACK, CULL_DET_MIN
-    )
     lib = _build.load("tile_backward")
     fn = lib.egs_tile_backward
     fn.restype = ctypes.c_int
@@ -385,7 +395,7 @@ def tiled_backward(
     )
     err = fn(
         feats.data_ptr(), tile_offsets.data_ptr(), basis.data_ptr(), num_tiles, p,
-        warp_block_side(p), feats.shape[0], cull, g_img.data_ptr(), g_t.data_ptr(),
+        warp_block_side(p), feats.shape[0], _cull_constants(), g_img.data_ptr(), g_t.data_ptr(),
         t_fin.data_ptr(), last.data_ptr(),
         out.data_ptr(),
         dev.index if dev.index is not None else torch.cuda.current_device(),

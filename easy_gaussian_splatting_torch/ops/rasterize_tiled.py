@@ -39,7 +39,7 @@ values and defaults are the JAX package's (``EGS_TPU_BWD_REDUCE``,
     ``group_reduce`` kernel. Forces the grid binning.
 ``BINNING_IMPL`` (``EGS_TORCH_BINNING``), the binning grid:
   - ``pallas`` (default): the hand-written ``binkeys`` CUDA kernel builds
-    each population's keys;
+    both populations' keys, flats and counts in one launch;
   - ``xla``: the ``[C, M]`` duplicate grid in plain tensor ops (the JAX
     package's XLA grid), with the same exact test in the same term order.
 
@@ -193,8 +193,7 @@ def _grid_keys(live, tiles, ranks, rank_bits: int, num_tiles: int) -> torch.Tens
 
 def _bin_grid(
     *, c, m, ts, tx_n, num_tiles, b_small, ov_capacity, two_pop, rank_bits,
-    want_dense, rank, mx, my, tx0, ty0, w, count, in_ov, ov_rank, safe_id, slot_valid,
-    conics, opacities,
+    want_dense, rank, mx, my, tx0, ty0, w, count, in_ov, ov_rank, ov_id, conics, opacities,
 ):
     """The JAX package's ``[C, M]`` duplicate grid (``rasterize_tiled.py:
     438-616``) in plain tensor ops: window cells, the exact ellipse/tile test
@@ -228,6 +227,8 @@ def _bin_grid(
 
     # A: [C, b_small], every gaussian's first cells; B: [ov_capacity, M],
     # the big-window gaussians compacted in index order, with all cells
+    slot_valid = ov_id < c
+    safe_id = torch.clamp(ov_id, max=c - 1)
     live_adj = live & (in_ov[:, None] | (j < b_small))
     counts = live_adj.sum(dim=1, dtype=torch.int32)
     live_a = live_adj[:, :b_small] & ~in_ov[:, None]
@@ -329,13 +330,11 @@ def bin_gaussians(
     in_ov = flag & (ov_rank < ov_capacity)
     # population B: the overflow gaussians, compacted in index order
     ov_id = torch.sort(torch.where(in_ov, torch.arange(c, device=device), c)).values[:ov_capacity]
-    slot_valid = ov_id < c
-    safe_id = torch.clamp(ov_id, max=c - 1)
     pops = dict(
         c=c, m=m, ts=ts, tx_n=tx_n, num_tiles=num_tiles, b_small=b_small,
         two_pop=two_pop, rank_bits=rank_bits, rank=rank, mx=mx, my=my, tx0=tx0,
-        ty0=ty0, w=w, count=count, in_ov=in_ov, safe_id=safe_id, slot_valid=slot_valid,
-        conics=conics, opacities=opacities,
+        ty0=ty0, w=w, count=count, in_ov=in_ov, ov_id=ov_id, conics=conics,
+        opacities=opacities,
     )
     dense = None
     if use_grid:
@@ -377,35 +376,26 @@ def bin_gaussians(
 
 def _bin_binkeys(
     *, c, m, ts, tx_n, num_tiles, b_small, two_pop, rank_bits, valid, rank, mx, my,
-    tx0, ty0, w, count, in_ov, safe_id, slot_valid, conics, opacities,
+    tx0, ty0, w, count, in_ov, ov_id, conics, opacities,
 ):
-    """Each population's keys, flats and counts from the ``binkeys`` kernel.
-    Returns the sort domain's keys and flats, and the counts."""
+    """Both populations' keys, flats and counts from one ``binkeys``
+    launch: the sort domain's keys and flats, and the counts."""
     device = mx.device
-    arange_c = torch.arange(c, dtype=torch.int32, device=device)
     fgeo = torch.stack(
         [mx, my, conics[:, 0], conics[:, 1], conics[:, 2], _s_max(opacities)]
-    ).contiguous()
-    ints = [tx0, ty0, w, count, rank.to(torch.int32), arange_c]
-    kw = dict(
-        m=m, ts=ts, tiles_x=tx_n, num_tiles=num_tiles, rank_bits=rank_bits,
-        sentinel_flat=c * m,
     )
-    livebase_a = valid & ~in_ov if two_pop else valid
-    igeo_a = torch.stack(ints + [livebase_a.to(torch.int32)])
-    keys_a, flats_a, cnt_small, cnt_full = binkeys_kernel.binkeys(
-        fgeo, igeo_a, n_keys=b_small if two_pop else m, **kw
+    # live in population A, or dead (an invalid row's count is 0 too); the
+    # overflow rows are the tail's, each named by one slot of ov_id
+    pop = valid.to(torch.int32)
+    if two_pop:
+        pop = torch.where(in_ov, binkeys_kernel.POP_TAIL, pop)
+    arange_c = torch.arange(c, dtype=torch.int32, device=device)
+    igeo = torch.stack([tx0, ty0, w, count, rank.to(torch.int32), arange_c, pop])
+    return binkeys_kernel.binkeys(
+        fgeo, igeo, n_keys=b_small if two_pop else m, m=m, ts=ts, tiles_x=tx_n,
+        num_tiles=num_tiles, rank_bits=rank_bits, sentinel_flat=c * m,
+        tail=ov_id if two_pop else None,
     )
-    if not two_pop:
-        return keys_a.reshape(-1), flats_a.reshape(-1), cnt_small
-    igeo_b = torch.stack([x[safe_id] for x in ints] + [slot_valid.to(torch.int32)])
-    keys_b, flats_b, _, _ = binkeys_kernel.binkeys(
-        fgeo[:, safe_id].contiguous(), igeo_b, n_keys=m, **kw
-    )
-    counts = torch.where(in_ov, cnt_full, cnt_small)
-    keys_dom = torch.cat([keys_a.reshape(-1), keys_b.reshape(-1)])
-    flats_dom = torch.cat([flats_a.reshape(-1), flats_b.reshape(-1)])
-    return keys_dom, flats_dom, counts
 
 
 def pack_features(

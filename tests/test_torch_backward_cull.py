@@ -1,7 +1,7 @@
-"""Host-side pieces of the tiled backward kernel, on the CPU: its warps'
-pixel layout and the plain version of its per-warp cull, which must never
+"""Host-side pieces of the tile kernels' per-warp cull, on the CPU: their
+warps' pixel layout and the plain version of the cull, which must never
 drop a feature row that some pixel of the warp finds eligible. On the card
-(marker ``cuda``; it skips without one), the kernel's own cull:
+(marker ``cuda``; it skips without one), the cull of each kernel:
 
     python -m pytest tests/test_torch_backward_cull.py -m cuda --noconftest -q
 """
@@ -139,18 +139,11 @@ def test_warp_reach_keeps_every_reachable_row(kind, tile_size):
     assert kind == "edge" or dropped > 0.5 * unreachable
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile_size", [12, 16, 32])
-def test_kernel_cull_is_exact(monkeypatch, tile_size):
-    """On the card: one tile of rows placed at the edges of eligibility and
-    of the cull's reach for one warp (some with means far off the tile)
-    among ordinary rows. The kernel gives the same bits with its cull as
-    with the cull disabled (``CULL_DET_MIN`` = inf keeps every row), so the
-    cull dropped no row that a pixel composites; and it agrees with the
-    plain version within 1e-4 of each column's largest magnitude."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
-    dev = torch.device("cuda")
+def _edge_tile(tile_size, dev):
+    """One tile of rows placed at the edges of eligibility and of the cull's
+    reach for one warp (some with means far off the tile) among ordinary
+    rows, on the card: (feats, offsets, basis). Checks that the cull has
+    work at both edges."""
     rng = np.random.default_rng(100 + tile_size)
     g9 = np.concatenate([_edge_gaussians(rng, 3000, tile_size), _random_gaussians(rng, 1000, tile_size)])
     rows, basis = _pack(g9[rng.permutation(g9.shape[0])], tile_size)
@@ -163,8 +156,26 @@ def test_kernel_cull_is_exact(monkeypatch, tile_size):
         eligible = (s2[pix] <= EDGES[0]).sum(0)
         composited_at_edge += int(((eligible > 0) & (eligible < 4)).sum())
     assert culled > n // 2 and composited_at_edge > 100  # the cull has work at both edges
-    feats, basis = rows.to(dev), basis.to(dev)
-    offs = torch.tensor([0, n], dtype=torch.int32, device=dev)
+    return rows.to(dev), torch.tensor([0, n], dtype=torch.int32, device=dev), basis.to(dev)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size", [12, 16, 32])
+def test_kernel_cull_is_exact(monkeypatch, tile_size):
+    """On the card, the backward on the edge tile (``_edge_tile``): the
+    kernel gives the same bits with its cull as with the cull disabled
+    (``CULL_DET_MIN`` = inf keeps every row), so the cull dropped no row that
+    a pixel composites; and it agrees with the plain version within 1e-4 of
+    each column's largest magnitude."""
+    dev = _card()
+    feats, offs, basis = _edge_tile(tile_size, dev)
+    p = basis.shape[0]
     _, t_fin, last = tr.tiled_forward(feats, offs, basis)
     gen = torch.Generator(device=dev).manual_seed(0)
     args = (feats, offs, basis, torch.randn((1, p, 3), generator=gen, device=dev),
@@ -178,6 +189,56 @@ def test_kernel_cull_is_exact(monkeypatch, tile_size):
     scale = want.abs().amax(dim=0)
     err = (got - want).abs().amax(dim=0)
     assert (err[:11] <= 1e-4 * scale[:11]).all(), (err / scale.clamp(min=1e-30)).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size", [12, 16, 32])
+def test_kernel_forward_cull_is_exact(monkeypatch, tile_size):
+    """On the card, the forward on the edge tile (``_edge_tile``): rgb, final
+    T and last are the same bits with the cull as with it disabled, so the
+    cull dropped no row that a pixel composites or that stops a pixel; and
+    the kernel agrees with the plain version within 1e-4 on 98% of the
+    pixels (a tile of 144 pixels or more: the plain version's cumulative
+    product rounds in another order, which can flip a stop decision where T
+    lands on 1e-4)."""
+    dev = _card()
+    feats, offs, basis = _edge_tile(tile_size, dev)
+    got = tr.tiled_forward(feats, offs, basis)
+    want = tr.tiled_forward_plain(feats, offs, basis)
+    monkeypatch.setattr(tr, "CULL_DET_MIN", float("inf"))
+    uncut = tr.tiled_forward(feats, offs, basis)
+    torch.cuda.synchronize()
+    for g, u in zip(got, uncut):
+        assert torch.equal(g, u)
+    rgb, t_fin, last = got
+    assert (last >= 0).all() and (t_fin < 1.0).all()  # every pixel composites
+    ok = ((rgb - want[0]).abs().amax(-1) <= 1e-4) & ((t_fin - want[1]).abs() <= 1e-4)
+    assert ok.float().mean().item() >= 0.98
+
+
+@pytest.mark.parametrize("tile_size", [12, 16, 32])
+@pytest.mark.parametrize("kind", ["random", "edge"])
+def test_tile_bound_reach_keeps_every_reachable_row(kind, tile_size):
+    """The forward kernel's cull: one box of each row for all of a tile's
+    warps, under the tile's bound on |px| and |py|. For each warp it keeps
+    every row with s2 <= S2_REACH at one of the warp's pixels, and every row
+    the cull under the warp's own bound keeps (a larger bound only widens
+    the box)."""
+    rng = np.random.default_rng(50 + tile_size)
+    make = _random_gaussians if kind == "random" else _edge_gaussians
+    rows, basis = _pack(make(rng, 3000, tile_size), tile_size)
+    s2 = tr._sigma2(rows[None], basis)[0]  # [P, R]
+    p = basis.shape[0]
+    bound = (float(basis[:, 3].abs().max()), float(basis[:, 4].abs().max()))
+    dropped = 0
+    for pix in tr.warp_pixels(p):
+        pix = pix[pix < p]
+        keep = tr.warp_reach_plain(rows, _rect(basis, pix), bound)
+        reach = (s2[pix] <= tr.S2_REACH).any(0)
+        assert not (reach & ~keep).any(), "the cull dropped a reachable row"
+        assert not (tr.warp_reach_plain(rows, _rect(basis, pix)) & ~keep).any()
+        dropped += int((~keep).sum())
+    assert kind == "edge" or dropped > 0
 
 
 def test_warp_reach_keeps_rows_it_cannot_bound():

@@ -12,7 +12,7 @@ from easy_gaussian_splatting_tpu.ops.pallas.binkeys import GBLK
 from easy_gaussian_splatting_tpu.ops.pallas.binkeys import binkeys as jax_binkeys
 from easy_gaussian_splatting_tpu.ops import rasterize_tiled as jrt
 from easy_gaussian_splatting_torch.ops import rasterize_tiled as trt
-from easy_gaussian_splatting_torch.ops.kernels.binkeys import binkeys
+from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
 
 H, W = 40, 72  # non-multiples of the tile size exercise padding
 TS = 16
@@ -76,12 +76,47 @@ def test_plain_binkeys_matches_jax_binkeys(rng, n_keys):
     igeo = torch.as_tensor(np.stack(
         [r[k] for k in ("tx0", "ty0", "w", "count", "rank", "orig", "livebase")]
     ).astype(np.int32))
-    tk, tf, tcs, tcf = binkeys(fgeo, igeo, **kw)
+    tk, tf, tcs, tcf = bk.population_plain(fgeo, igeo, **kw)
     np.testing.assert_array_equal(tk.numpy(), jk.astype(np.int64))
     np.testing.assert_array_equal(tf.numpy(), jf)
     np.testing.assert_array_equal(tcs.numpy(), jcs)
     np.testing.assert_array_equal(tcf.numpy(), jcf)
     assert (tcf.numpy() > 0).sum() > c // 2  # the exact test kept real cells
+
+
+@pytest.mark.parametrize("n_keys", [2, 4, 9])
+def test_binkeys_plain_is_two_populations(rng, n_keys):
+    """The two-population plain ``binkeys`` (the kernel's function) against
+    two one-population calls, as the JAX package makes them: population A
+    with its keys live where ``pop`` is 1, the tail's rows gathered (an
+    empty slot takes the last row, its keys dead), and the counts taken from
+    the full window for the tail's rows."""
+    c, m = 300, 16
+    r = _random_rows(rng, c, m)
+    fgeo = torch.as_tensor(np.stack([r[k] for k in ("mx", "my", "a", "b", "cc", "s_max")]))
+    ints = [torch.as_tensor(r[k].astype(np.int32)) for k in ("tx0", "ty0", "w", "count", "rank", "orig")]
+    big = np.flatnonzero(r["count"] > n_keys)
+    named = np.sort(rng.choice(big, size=len(big) // 2, replace=False))
+    in_tail = np.zeros(c, bool)
+    in_tail[named] = True
+    pop = np.where(in_tail, bk.POP_TAIL, r["livebase"] & ~in_tail).astype(np.int32)
+    tail = torch.as_tensor(np.concatenate([named, np.full(7, c)]))  # 7 empty slots
+    kw = dict(m=m, ts=TS, tiles_x=6, num_tiles=30, rank_bits=(c - 1).bit_length(),
+              sentinel_flat=c * m)
+    keys, flats, counts = bk.binkeys(
+        fgeo, torch.stack(ints + [torch.as_tensor(pop)]), n_keys=n_keys, tail=tail, **kw)
+    ka, fa, cs, cf = bk.population_plain(
+        fgeo, torch.stack(ints + [torch.as_tensor((pop == bk.POP_A).astype(np.int32))]),
+        n_keys=n_keys, **kw)
+    row = torch.clamp(tail, max=c - 1)
+    kb, fb, _, _ = bk.population_plain(
+        fgeo[:, row].contiguous(), torch.stack([x[row] for x in ints] + [(tail < c).to(torch.int32)]),
+        n_keys=m, **kw)
+    assert len(named) > 5
+    assert torch.equal(keys, torch.cat([ka.reshape(-1), kb.reshape(-1)]))
+    assert torch.equal(flats, torch.cat([fa.reshape(-1), fb.reshape(-1)]))
+    assert torch.equal(counts, torch.where(torch.as_tensor(in_tail), cf, cs))
+    assert (cf[named] > cs[named]).any()  # the tail's rows count past n_keys
 
 
 def _bin_both(scene, small_budget, ov_capacity):

@@ -32,10 +32,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _scene(rng, n, height, width, device, opacity=(0.05, 0.99)):
+def _scene(rng, n, height, width, device, opacity=(0.05, 0.99), scale=(0.3, 4.0)):
     """Screen-space Gaussians of mixed size and opacity."""
     m2d = rng.uniform([-8, -8], [width + 8, height + 8], size=(n, 2))
-    L = rng.normal(size=(n, 2, 2)) * rng.uniform(0.3, 4.0, size=(n, 1, 1))
+    L = rng.normal(size=(n, 2, 2)) * rng.uniform(*scale, size=(n, 1, 1))
     cov = L @ np.swapaxes(L, 1, 2) + np.eye(2)[None] * 0.3
     det = cov[:, 0, 0] * cov[:, 1, 1] - cov[:, 0, 1] ** 2
     con = np.stack([cov[:, 1, 1] / det, -cov[:, 0, 1] / det, cov[:, 0, 0] / det], -1)
@@ -58,11 +58,15 @@ def test_build_all(cuda):
 
 @pytest.mark.parametrize("small_budget", [2, 4, 9])
 def test_binkeys_matches_plain(cuda, rng, small_budget):
-    """Both populations of a real binning call: keys, flats and counts are
+    """Both populations of a real binning call in one launch, with overflow
+    rows (a few Gaussians far larger than the rest, more of them than the
+    tail has slots at the smaller budgets): keys, flats and counts are
     integers and must be equal (the library is built without FMA
     contraction, so the exact tile test rounds like the plain version)."""
     h, w = 360, 480
-    m2d, con, col, opa, dep, rad = _scene(rng, 20000, h, w, cuda)
+    small = _scene(rng, 20000, h, w, cuda)
+    big = _scene(rng, 600, h, w, cuda, scale=(6.0, 20.0))
+    m2d, con, col, opa, dep, rad = (torch.cat([a, b]) for a, b in zip(small, big))
     geom = trt.image_geometry(h, w, 16)
     ext = trt.binning_extents(con, opa, rad)
     calls = []
@@ -74,35 +78,48 @@ def test_binkeys_matches_plain(cuda, rng, small_budget):
 
     bk.binkeys = rec
     try:
-        trt.bin_gaussians(m2d, ext, dep, geom, 4, 4, con, opa, ov_capacity=2048,
+        trt.bin_gaussians(m2d, ext, dep, geom, 4, 4, con, opa, ov_capacity=256,
                           small_budget=small_budget, height=h)
     finally:
         bk.binkeys = orig
-    assert len(calls) == 2
+    assert len(calls) == 1
+    (fgeo, igeo), kw = calls[0]
+    in_tail = int((igeo[6] == bk.POP_TAIL).sum())
+    assert in_tail > 0 and kw["tail"].shape[0] == 256
+    assert (igeo[3] > small_budget).sum() > in_tail or small_budget == 9  # some overflow past the tail
     before = bk.launches
-    for a, k in calls:
-        for got, want in zip(bk.binkeys(*a, **k), bk.binkeys_plain(*a, **k)):
-            assert torch.equal(got, want)
-    assert bk.launches == before + 2
+    for got, want in zip(bk.binkeys(fgeo, igeo, **kw), bk.binkeys_plain(fgeo, igeo, **kw)):
+        assert torch.equal(got, want)
+    assert bk.launches == before + 1
 
 
+@pytest.mark.parametrize("opacity", [(0.05, 0.99), (0.01, 0.1)], ids=["mixed", "low"])
 @pytest.mark.parametrize("tile_size", [16, 32])
-def test_tiled_forward_matches_plain(cuda, rng, tile_size):
-    """The sequential per-pixel walk against the plain version's cumulative
-    products: 1e-4 on at least 99.99% of pixels (rounding can flip a stop
-    decision of a pixel whose transmittance lands on 1e-4)."""
+def test_tiled_forward_matches_plain(cuda, rng, tile_size, opacity):
+    """The per-warp walk against the plain version's cumulative products:
+    1e-4 on at least 99.99% of pixels (rounding can flip a stop decision of
+    a pixel whose transmittance lands on 1e-4). Mixed opacities saturate
+    pixels, which stop early; opacities 0.01-0.1 saturate none, so every
+    warp walks its tile's whole list, most of whose rows reach none of its
+    pixels and are culled."""
     h, w = 256, 320
-    m2d, con, col, opa, dep, rad = _scene(rng, 30000, h, w, cuda)
+    m2d, con, col, opa, dep, rad = _scene(rng, 30000, h, w, cuda, opacity=opacity)
     geom, binning, feats = trt._prepare(
         m2d, con, col, opa, rad, dep, h, w, tile_size, 4, 4, isect_cap=10**7,
     )
     basis = trt.tile_pixel_basis(geom, cuda)
+    before = tr.launches
     k_rgb, k_t, k_last = tr.tiled_forward(feats, binning.tile_offsets, basis)
     p_rgb, p_t, p_last = tr.tiled_forward_plain(feats, binning.tile_offsets, basis)
+    torch.cuda.synchronize()
+    assert tr.launches == before + 1
     ok = ((k_rgb - p_rgb).abs().amax(-1) <= 1e-4) & ((k_t - p_t).abs() <= 1e-4)
     assert ok.float().mean().item() >= 0.9999
     assert ((k_last == p_last) | ~ok).float().mean().item() >= 0.999
-    assert (k_t < 1e-3).any()  # some pixels saturate and stop early
+    if opacity[1] > 0.5:
+        assert (k_t < 1e-3).any()  # some pixels saturate and stop early
+    else:
+        assert (k_t > 0.05).all() and (k_last >= 0).float().mean().item() > 0.9
 
 
 def test_rasterize_tiled_kernels_match_plain(cuda, rng):
