@@ -71,15 +71,36 @@ and then through the trainer under the other backward reductions
    the library's sum of each population;
 12. with ``--ab-parent DIR`` (another checkout, the parent commit): its
    ``tiled_forward`` (the served frame, phase 8's and the post-reset
-   inputs), ``tiled_backward``, ``group_reduce`` and ``binkeys`` (the served
-   frame's and phase 8's binning; the parent's wrapper takes one population
-   a launch) beside this tree's on the same recorded inputs, outputs
-   compared, timed parent, change, change, parent.
+   inputs), ``tiled_backward``, ``group_reduce``, ``binkeys`` (the served
+   frame's and phase 8's binning) and ``segsum_compact`` (phase 11's
+   ``pallas`` call) beside this tree's on the same recorded inputs, outputs compared, timed parent,
+   change, change, parent;
+
+and then through ``train(cfg)`` with no scene object, the path a user of
+the data loaders takes:
+
+13. (a) a COLMAP directory written by the port's ``generate_colmap_scene``
+   (24 images 800x800 of 20,000 SH-3 ground-truth Gaussians rendered by
+   its tiled renderer, ``--gaussians`` sparse points) trained 60 steps with
+   ``configs/tandt_db.yaml``'s values and a compressed schedule (printed):
+   both frame caches resident, every main-path kernel launched every step,
+   no truncation, the loss finite and falling before the one densify
+   event, evals at steps 1, 30 and 60 from the eval cache with finite
+   metrics (the device latency below the blocking host latency), the
+   profiler trace written and the checkpoint reloaded; step medians (host
+   clock and CUDA events), loop-iteration medians and peak device memory,
+   then the same with each frame streamed from the host
+   (``data_device_cache: false``), decoded ahead by the prefetch threads;
+   (b) the convergence check of ``scripts/validate_e2e.py``'s defaults: a
+   128x128 Blender scene of 300 SH-0 Gaussians rendered by the port's
+   oracle, 800 steps, the test frames' PSNR, SSIM and proxy LPIPS after
+   re-seeding; below 22 dB fails.
 
 Then one JSON line of the seven kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
 for the first four and that of its reduction in phase 11 for the other
-three, ``launches_served`` the viewer's build and requests of phase 5.
+three, ``launches_served`` the viewer's build and requests of phase 5,
+``launches_data_path`` the cached ``train(cfg)`` run of phase 13 (a).
 ``ms``, ``plain_ms``, ``bound_ms`` and ``max_abs_err`` come from the served
 800x800 frame for binkeys and tiled_forward, and from the first train
 step for the others; ``library_ms`` is null where no one PyTorch call
@@ -766,14 +787,17 @@ PER_STEP = {"binkeys": 1, "tiled_forward": 1, "tiled_backward": 1, "segsum_band"
 
 def train_recorded(cfg, scene, device):
     """The port's ``train()`` with each step timed (host clock between two
-    synchronizes), its launches, loss, intersections and capacity
-    recorded, and the densify and reset events counted."""
+    synchronizes, and CUDA events through ``StepTimer`` in ``rec["timer"]``),
+    its launches, loss, intersections and capacity recorded, and the
+    densify and reset events counted."""
     import torch
 
     from easy_gaussian_splatting_torch.ops.rasterize_tiled import isect_capacity
     from easy_gaussian_splatting_torch.training import trainer as ttrainer
+    from easy_gaussian_splatting_torch.utils.profiling import StepTimer
 
-    rec = {"steps": [], "densify": 0, "reset": 0}
+    timer = StepTimer(device)
+    rec = {"steps": [], "densify": 0, "reset": 0, "timer": timer}
     make_orig = ttrainer.make_train_step
     densify_orig = ttrainer.run_densify_with_growth
     reset_orig = ttrainer.reset_opacities
@@ -786,13 +810,15 @@ def train_recorded(cfg, scene, device):
             before = counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            timer.start()
             out = step(model, adam, *a, **k)
+            timer.stop()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             after = counts()
             ld = out[2]
             rec["steps"].append(dict(
-                ms=ms, launches={n: after[n] - before[n] for n in after},
+                ms=ms, start=t0, launches={n: after[n] - before[n] for n in after},
                 loss=float(ld["total"]), isects=int(ld["isects"]),
                 cap=isect_capacity(model.capacity, mult), capacity=model.capacity,
             ))
@@ -1255,8 +1281,8 @@ def train_reduction(name, xyzs, rgbs, frames, device, seed):
 
 # ----------------------------------------------------------------- phase 12
 def parent_kernels(root: Path):
-    """The ``tile_raster``, ``group_reduce`` and ``binkeys`` wrapper modules of
-    another checkout of this repository, imported as a package of their own
+    """The ``tile_raster``, ``group_reduce``, ``binkeys`` and ``segments``
+    wrapper modules of another checkout of this repository, imported as a package of their own
     (they build their kernels from that checkout's sources into its own
     build directory), so that both trees' kernels run in one process."""
     import importlib
@@ -1270,44 +1296,11 @@ def parent_kernels(root: Path):
     sys.modules[name] = module
     spec.loader.exec_module(module)
     return tuple(importlib.import_module(f"{name}.ops.kernels.{k}")
-                 for k in ("tile_raster", "group_reduce", "binkeys"))
+                 for k in ("tile_raster", "group_reduce", "binkeys", "segments"))
 
 
-def parent_binkeys(pbk, call):
-    """A recorded ``binkeys`` call as the parent's wrapper takes it, one
-    population a call: population a with livebase ``pop == 1``, then the
-    tail's rows gathered with livebase "the slot is not empty". Returns a
-    function that launches both and assembles the one call's outputs (keys,
-    flats, counts where the row is the tail's from the full window)."""
-    import torch
-
-    from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
-
-    (fgeo, igeo), kw = call
-    kw = dict(kw)
-    tail = kw.pop("tail")
-    pop = igeo[6]
-    igeo_a = torch.cat([igeo[:6], (pop == bk.POP_A).to(torch.int32)[None]])
-    calls = [((fgeo, igeo_a), kw)]
-    if tail is not None:
-        n = fgeo.shape[1]
-        row = torch.clamp(tail, max=n - 1)
-        igeo_b = torch.cat([igeo[:6, row], (tail < n).to(torch.int32)[None]])
-        calls.append(((fgeo[:, row].contiguous(), igeo_b), dict(kw, n_keys=kw["m"])))
-
-    def launch():
-        return [pbk.binkeys(*a, **k) for a, k in calls]
-
-    def assemble(outs):
-        (ka, fa, cs, cf), rest = outs[0], outs[1:]
-        keys = torch.cat([ka.reshape(-1)] + [o[0].reshape(-1) for o in rest])
-        flats = torch.cat([fa.reshape(-1)] + [o[1].reshape(-1) for o in rest])
-        return keys, flats, torch.where(pop == bk.POP_TAIL, cf, cs)
-
-    return launch, assemble
-
-
-def ab_compare(root: Path, fw_inputs: dict, bw_inputs: dict, gr_calls, bk_calls: dict) -> None:
+def ab_compare(root: Path, fw_inputs: dict, bw_inputs: dict, gr_calls, bk_calls: dict,
+               compact_call) -> None:
     """Each redesigned kernel against the parent's on the same recorded
     inputs: outputs compared, then timed parent, change, change, parent
     (CUDA events over 20 launches each; ``binkeys`` also on the device alone,
@@ -1316,10 +1309,26 @@ def ab_compare(root: Path, fw_inputs: dict, bw_inputs: dict, gr_calls, bk_calls:
 
     from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
     from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
     from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
 
-    ptr, pgr, pbk = parent_kernels(root)
+    ptr, pgr, pbk, pseg = parent_kernels(root)
     cases = []
+    # segsum_compact on phase 11's pallas call: the written groups within
+    # SEG_RTOL of their |sum| (the parent also sums each group in row order)
+    (rows, g), kw = compact_call
+    mg = kw["max_groups"]
+    k = min(int(seg.group_slots(g)[-1]) + 1, mg)
+    p_out, c_out = pseg.segsum_compact(rows, g, mg), seg.segsum_compact(rows, g, mg)
+    mag = seg.segsum_compact_plain(rows.abs(), g, mg)
+    diff = (p_out[:k] - c_out[:k]).abs()
+    outside = int((diff > SEG_RTOL * mag[:k]).sum())
+    log(f"[12] segsum_compact on phase 11's pallas call: change vs parent on {k} written groups: "
+        f"{outside} values outside {SEG_RTOL} of the group's |sum|, max |diff| {float(diff.max()):.1e}, "
+        f"equal {torch.equal(p_out[:k], c_out[:k])}")
+    check(outside == 0, "segsum_compact differs from the parent's")
+    cases.append(("segsum_compact on phase 11's pallas call",
+                  lambda: pseg.segsum_compact(rows, g, mg), lambda: seg.segsum_compact(rows, g, mg)))
     for what, a in fw_inputs.items():
         (p_rgb, p_t, p_last), (c_rgb, c_t, c_last) = ptr.tiled_forward(*a), tr.tiled_forward(*a)
         log(f"[12] tiled_forward on {what}: change vs parent: last equal {torch.equal(p_last, c_last)}, "
@@ -1334,25 +1343,20 @@ def ab_compare(root: Path, fw_inputs: dict, bw_inputs: dict, gr_calls, bk_calls:
             + ", ".join(f"{float(x):.1e}" for x in d))
         cases.append((f"tiled_backward on {what}", lambda a=a: ptr.tiled_backward(*a),
                       lambda a=a: tr.tiled_backward(*a)))
-    # the parent's wrapper takes one population a call
-    pops = [pop for call in gr_calls for pop in populations(call)]
-    check(torch.equal(torch.cat([pgr.group_reduce(x, b) for x, b in pops]),
-                      torch.cat([gr.group_reduce(*a, **k) for a, k in gr_calls])),
+    check(all(torch.equal(pgr.group_reduce(*a, **k), gr.group_reduce(*a, **k)) for a, k in gr_calls),
           "group_reduce differs from the parent's")
     cases.append(("group_reduce, the dense step's populations",
-                  lambda: [pgr.group_reduce(x, b) for x, b in pops],
+                  lambda: [pgr.group_reduce(*a, **k) for a, k in gr_calls],
                   lambda: [gr.group_reduce(*a, **k) for a, k in gr_calls]))
     queued = []
-    for what, call in bk_calls.items():
-        launch, assemble = parent_binkeys(pbk, call)
-        got = bk.binkeys(*call[0], **call[1])
-        want = assemble(launch())
-        check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"binkeys differs from the parent's two launches on {what}")
-        log(f"[12] binkeys on {what}: keys, flats and counts equal to the parent's two launches")
-        change = lambda call=call: bk.binkeys(*call[0], **call[1])  # noqa: E731
-        cases.append((f"binkeys on {what} (parent: two launches)", launch, change))
-        queued.append((f"binkeys on {what}, device alone", launch, change))
+    for what, (a, k) in bk_calls.items():
+        check(all(torch.equal(g, w) for g, w in zip(bk.binkeys(*a, **k), pbk.binkeys(*a, **k))),
+              f"binkeys differs from the parent's on {what}")
+        log(f"[12] binkeys on {what}: keys, flats and counts equal to the parent's")
+        parent = lambda a=a, k=k: pbk.binkeys(*a, **k)  # noqa: E731
+        change = lambda a=a, k=k: bk.binkeys(*a, **k)  # noqa: E731
+        cases.append((f"binkeys on {what}", parent, change))
+        queued.append((f"binkeys on {what}, device alone", parent, change))
     for what, parent, change in cases:
         p1, c1, c2, p2 = (cuda_ms(fn, 20) for fn in (parent, change, change, parent))
         log(f"[12] {what}: parent {p1:.4f} ms, change {c1:.4f}, change {c2:.4f}, parent "
@@ -1361,6 +1365,212 @@ def ab_compare(root: Path, fw_inputs: dict, bw_inputs: dict, gr_calls, bk_calls:
         p1, c1, c2, p2 = (queued_ms(fn, 20) for fn in (parent, change, change, parent))
         log(f"[12] {what}: parent {p1:.4f} ms, change {c1:.4f}, change {c2:.4f}, parent "
             f"{p2:.4f}; change / parent {(c1 + c2) / (p1 + p2):.3f}")
+
+
+# ----------------------------------------------------------------- phase 13
+# configs/tandt_db.yaml with a schedule compressed so that the 60 steps hold
+# the profiler window (steps 10-14), evals at steps 1, 30 and 60, one densify
+# event (step 40), no opacity reset and a checkpoint at the end; SH 3 from
+# the first step, as phases 7-11 train
+DATA_SCHEDULE = dict(
+    total_iterations=60, sh_degree_interval=0, refine_start=0, refine_every=40,
+    reset_opacities_every=1000, eval_every=30, eval_render_num=3, profile_steps=5,
+    save_model_iterations=[60], save_optimizer_state=True, log_every=10,
+)
+DATA_TIMED = range(15, 29)  # steps 16-29: after the profiler window, before the event
+STREAM_STEPS = 30  # the streamed run (>= the 21 train frames the Scene tiles)
+STREAM_TIMED = range(10, 29)  # its steps 11-29
+# scripts/validate_e2e.py's defaults (--iters 800 --size 128) and its
+# compressed schedule; its own gate
+E2E_ITERS, E2E_SIZE, E2E_MIN_PSNR = 800, 128, 22.0
+E2E_SCHEDULE = dict(
+    eval_every=max(200, E2E_ITERS // 4), eval_render_num=1,
+    sh_degree_interval=max(100, E2E_ITERS // 8), refine_start=100,
+    refine_stop=int(E2E_ITERS * 0.6), refine_every=100,
+    reset_opacities_every=max(600, E2E_ITERS // 3), save_model_iterations=[E2E_ITERS],
+    log_every=100,
+)
+
+
+@contextlib.contextmanager
+def data_path_records():
+    """Record the frame caches ``train()`` builds and the evals it runs."""
+    from easy_gaussian_splatting_torch.evaluation import evaluator as ev
+    from easy_gaussian_splatting_torch.scene import device_cache as dc
+
+    rec = {"caches": [], "evals": []}
+    build_orig, evaluate_orig = dc.build_cache, ev.Evaluator.evaluate
+
+    def build(scene, split, *a, **k):
+        cache = build_orig(scene, split, *a, **k)
+        rec["caches"].append((split, cache))
+        return cache
+
+    def evaluate(self, *a, **k):
+        metrics = evaluate_orig(self, *a, **k)
+        rec["evals"].append((k.get("cache"), metrics))
+        return metrics
+
+    with swapped(dc, "build_cache", build), swapped(ev.Evaluator, "evaluate", evaluate):
+        yield rec
+
+
+def iteration_ms(steps, timed) -> list:
+    """Host-clock intervals between consecutive steps' starts: the step, its
+    frame's fetch (and upload, when streamed) and the loop's own work."""
+    return [(steps[i + 1]["start"] - steps[i]["start"]) * 1e3 for i in timed]
+
+
+def train_data_path(scene_dir: Path, out_dir: Path, device, card: str) -> dict:
+    """Phase 13 (a): ``train(cfg)`` with no scene object on the COLMAP scene
+    at ``scene_dir``, the frame caches on (the config's default), evals and
+    the profiler window; then a streamed run of a few steps."""
+    import random
+
+    import torch
+
+    from easy_gaussian_splatting_torch.training.config import load_config
+    from easy_gaussian_splatting_torch.utils.checkpoint import load_checkpoint
+
+    cfg = load_config(REPO / "configs" / "tandt_db.yaml", **DATA_SCHEDULE, data=str(scene_dir),
+                      output=str(out_dir))
+    check(cfg.data_device_cache, "the config turned the device frame cache off")
+    log("[13] config: configs/tandt_db.yaml with " + json.dumps(DATA_SCHEDULE)
+        + f", data {scene_dir.name}, data_device_cache {cfg.data_device_cache}")
+    random.seed(cfg.random_seed)
+    np.random.seed(cfg.random_seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with data_path_records() as drec:
+        loop, rec = train_recorded(cfg, None, device)
+    train_s = time.perf_counter() - t0
+    total = counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = rec["steps"]
+    check(len(steps) == cfg.total_iterations == loop.step, f"trained {len(steps)} steps")
+    caches = dict(drec["caches"])
+    check(set(caches) == {"train", "eval"} and all(c is not None for c in caches.values()),
+          f"the frame caches were not both built: {caches}")
+    for split, c in caches.items():
+        log(f"[13] {split} frame cache resident on the card: {c.num_frames} frames, "
+            f"{c.nbytes / 2**20:.1f} MiB")
+    log(f"[13] train(): {loop.step} steps in {train_s:.1f} s, {rec['densify']} densify event, "
+        f"{loop.model.num_alive()} gaussians at the end (capacity {loop.model.capacity}); launches "
+        + ", ".join(f"{k} {v}" for k, v in total.items() if v))
+    short = [i + 1 for i, st in enumerate(steps)
+             if any(st["launches"][n] < PER_STEP[n] for n in PER_STEP)]
+    check(not short, f"a kernel was launched fewer times than its per-step count at steps {short}")
+    truncated = [i + 1 for i, st in enumerate(steps) if st["isects"] > st["cap"]]
+    check(not truncated, f"truncated steps: {truncated}")
+    check(rec["densify"] == 1 and rec["reset"] == 0,
+          f"{rec['densify']} densify events and {rec['reset']} resets ran, want 1 and 0")
+    losses = [st["loss"] for st in steps]
+    check(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    early, later = float(np.mean(losses[:10])), float(np.mean(losses[30:40]))
+    log(f"[13] loss: mean of steps 1-10 {early:.5f}, of steps 31-40 {later:.5f}; per step "
+        + " ".join(f"{x:.4f}" for x in losses))
+    check(later < early, "the loss did not fall before the densify event")
+    evals = drec["evals"]
+    check(len(evals) == 3 and all(c is caches["eval"] for c, _ in evals),
+          f"{len(evals)} evals ran, want 3 from the eval cache")
+    for step, (_, m) in zip((1, 30, 60), evals):
+        vals = {k: m[k] for k in ("psnr", "ssim", "lpips_proxy", "fps", "latency_ms",
+                                  "latency_device_ms")}
+        check(all(math.isfinite(v) for v in vals.values()), f"eval at step {step}: {vals}")
+        check(vals["latency_device_ms"] < vals["latency_ms"],
+              f"eval at step {step}: the device latency is above the blocking host latency")
+        log(f"[13] eval at step {step}: " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+            + f", {sum(k.startswith('render_') for k in m)} side-by-side renders")
+    trace = out_dir / "profile" / "trace.json"
+    check(trace.exists() and trace.stat().st_size > 0, f"no profiler trace at {trace}")
+    log(f"[13] profiler trace (steps 10-14): {trace.relative_to(out_dir)}, "
+        f"{trace.stat().st_size / 2**20:.1f} MiB")
+    ckpt = out_dir / "checkpoints" / f"iterations_{cfg.total_iterations}.npz"
+    state, sh, step, adam = load_checkpoint(ckpt, device)
+    check(step == cfg.total_iterations and adam is not None
+          and state.num_alive() == loop.model.num_alive(), "the checkpoint did not reload")
+    log(f"[13] checkpoint {ckpt.name}: step {step}, SH {sh}, {state.num_alive()} gaussians, "
+        "Adam state reloaded")
+    step_ms = [steps[i]["ms"] for i in DATA_TIMED]
+    it_ms = iteration_ms(steps, DATA_TIMED)
+    dev_ms = rec["timer"].durations_ms()
+    dev_step = float(np.median([dev_ms[i] for i in DATA_TIMED]))
+    del loop, state, adam, drec
+    torch.cuda.empty_cache()
+
+    # the same path with each step's frame streamed from the host, decoded
+    # ahead by the config's prefetch threads
+    log(f"[13] card: {card}")
+    log(f"[13] cached: step median (steps 16-29, host clock between synchronizes) "
+        f"{float(np.median(step_ms)):.2f} ms, on CUDA events (StepTimer) {dev_step:.2f} ms, loop "
+        f"iteration median {float(np.median(it_ms)):.2f} ms; peak device memory in train() "
+        f"{peak / 2**20:.0f} MiB")
+    scfg = load_config(REPO / "configs" / "tandt_db.yaml", **dict(
+        DATA_SCHEDULE, total_iterations=STREAM_STEPS, refine_start=1000, profile_steps=0,
+        eval_every=1000, save_model_iterations=[]), data=str(scene_dir), output=None,
+        data_device_cache=False)
+    random.seed(cfg.random_seed)
+    np.random.seed(cfg.random_seed)
+    with data_path_records() as srec:
+        sloop, stream = train_recorded(scfg, None, device)
+    check(not srec["caches"] and sloop.step == STREAM_STEPS, "the streamed run built a cache")
+    s_step = float(np.median([stream["steps"][i]["ms"] for i in STREAM_TIMED]))
+    s_dev = stream["timer"].durations_ms()
+    s_dev_step = float(np.median([s_dev[i] for i in STREAM_TIMED]))
+    s_it = float(np.median(iteration_ms(stream["steps"], STREAM_TIMED)))
+    log(f"[13] streamed (data_device_cache false, dataloader_workers {scfg.dataloader_workers}, "
+        f"{STREAM_STEPS} steps): step median (steps 11-29) {s_step:.2f} ms, on CUDA events "
+        f"{s_dev_step:.2f} ms, loop iteration median {s_it:.2f} ms")
+    return dict(launches=total, step_ms=float(np.median(step_ms)), it_ms=float(np.median(it_ms)),
+                peak=peak, stream_step_ms=s_step, stream_it_ms=s_it)
+
+
+def convergence(scene_dir: Path, out_dir: Path, seed: int, device) -> dict:
+    """Phase 13 (b): scripts/validate_e2e.py's defaults through the port: a
+    Blender scene rendered by the port's oracle, ``train(cfg)`` for 800
+    steps, then the eval split (the test directory) of a Scene rebuilt
+    after re-seeding, as the script does."""
+    import random
+
+    import torch
+
+    from easy_gaussian_splatting_torch.evaluation.evaluator import Evaluator
+    from easy_gaussian_splatting_torch.scene.scene import Scene
+    from easy_gaussian_splatting_torch.training.config import config_from_dict
+    from easy_gaussian_splatting_torch.training.trainer import get_render_fn, train
+    from easy_gaussian_splatting_torch.utils.synthetic import generate_blender_scene
+
+    t0 = time.perf_counter()
+    generate_blender_scene(scene_dir, image_size=E2E_SIZE, n_train=24, n_test=6,
+                           n_gaussians=300, sh_degree=0, seed=seed, device=device)
+    gen_s = time.perf_counter() - t0
+    cfg = config_from_dict(dict(
+        data=str(scene_dir), output=str(out_dir), total_iterations=E2E_ITERS, eval=True,
+        sh_degree=3, renderer="tiled", dataloader_workers=2, **E2E_SCHEDULE,
+        data_format="blender", white_background=True, eval_in_test=True, blender_init_points=4000,
+    ))
+    log(f"[13] e2e: blender scene {E2E_SIZE}x{E2E_SIZE}, 24 train / 6 test frames of 300 SH-0 "
+        f"ground-truth gaussians (the port's oracle) written in {gen_s:.1f} s; schedule "
+        + json.dumps(E2E_SCHEDULE))
+    random.seed(cfg.random_seed)
+    np.random.seed(cfg.random_seed)
+    t0 = time.perf_counter()
+    loop = train(cfg, device=device)
+    train_s = time.perf_counter() - t0
+    random.seed(cfg.random_seed)
+    np.random.seed(cfg.random_seed)
+    scene = Scene.from_config(cfg)
+    bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=device)
+    m = Evaluator(0, get_render_fn(cfg)).evaluate(scene, "eval", loop.model, loop.active_sh_degree, bg)
+    out = {k: m[k] for k in ("psnr", "ssim", "lpips_proxy")}
+    log(f"[13] e2e: {E2E_ITERS} steps in {train_s:.1f} s ({E2E_ITERS / train_s:.1f} it/s), "
+        f"{loop.model.num_alive()} gaussians; eval on the {scene.nbr_data('eval')} test frames: "
+        f"psnr {out['psnr']:.2f} dB, ssim {out['ssim']:.4f}, lpips_proxy {out['lpips_proxy']:.4f} "
+        f"(gate {E2E_MIN_PSNR} dB)")
+    check(out["psnr"] >= E2E_MIN_PSNR, f"e2e psnr {out['psnr']:.2f} below {E2E_MIN_PSNR}")
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -1669,6 +1879,8 @@ def run(args) -> dict:
         reduce_numbers.update(time_reduction_kernels(name, rec))
         if name == "dense":
             gr_calls = rec["group_reduce"]
+        if name == "pallas":
+            compact_call = rec["segsum_compact"][0]
         del rec
         torch.cuda.empty_cache()
         runs[name] = train_reduction(name, xyzs, rgbs, frames, device, args.seed) + (step_peak,)
@@ -1691,7 +1903,26 @@ def run(args) -> dict:
             {"the served frame": fw_args, "phase 8's inputs": bw_args[:3],
              "the post-reset inputs": post_args[:3]},
             {"phase 8's inputs": bw_args, "the post-reset inputs": post_args}, gr_calls,
-            {"the served frame": bk_calls[0], "phase 8's binning": bk8_calls[0]})
+            {"the served frame": bk_calls[0], "phase 8's binning": bk8_calls[0]}, compact_call)
+        del bk8_calls
+
+    # ---- phase 13: train(cfg) from a data path, at full width from a
+    # COLMAP directory, then the convergence check
+    from easy_gaussian_splatting_torch.utils.synthetic import generate_colmap_scene
+
+    del state0, band_step, img0, mask0, grad_fn, frames, post_args, bw_calls, seg_calls
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scene_dir = RUN_DIR / "colmap_800"
+    generate_colmap_scene(scene_dir, n_images=24, image_size=800, n_gaussians=20000,
+                          n_points=args.gaussians, sh_degree=3, seed=args.seed,
+                          gt_renderer="tiled", device=device)
+    log(f"[13] colmap scene: 24 images 800x800 of 20000 SH-3 ground-truth gaussians (the port's "
+        f"tiled renderer), {args.gaussians} sparse points, written in {time.perf_counter() - t0:.1f} s")
+    data_run = train_data_path(scene_dir, RUN_DIR / "train13", device, card)
+    e2e = convergence(RUN_DIR / "e2e_data", RUN_DIR / "e2e_run", args.seed, device)
+    log(f"[13] card: {card}; data path step median {data_run['step_ms']:.2f} ms cached, "
+        f"{data_run['stream_step_ms']:.2f} ms streamed; e2e psnr {e2e['psnr']:.2f} dB")
 
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
@@ -1705,7 +1936,8 @@ def run(args) -> dict:
     kernels = [
         dict(name=name, route="cuda", source=f"easy_gaussian_splatting_torch/csrc/{src}",
              replaces=f"easy_gaussian_splatting_tpu/ops/pallas/{tpu}",
-             launches=train_counts[name], launches_served=served_all[name], max_abs_err=err,
+             launches=train_counts[name], launches_served=served_all[name],
+             launches_data_path=data_run["launches"][name], max_abs_err=err,
              ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
         for name, (src, tpu, err, ms, plain, bound, by) in measured.items()
     ]
@@ -1718,8 +1950,8 @@ def run(args) -> dict:
             name=name, route="cuda", source=f"easy_gaussian_splatting_torch/csrc/{src}",
             replaces=f"easy_gaussian_splatting_tpu/ops/pallas/{tpu}",
             launches=reduce_counts[name], launches_served=served_all[name],
-            max_abs_err=reduce_errs[name], ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-            library_ms=lib))
+            launches_data_path=data_run["launches"][name], max_abs_err=reduce_errs[name],
+            ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}
@@ -1731,7 +1963,7 @@ def main(argv=None) -> int:
     parser.add_argument("--gaussians", type=int, default=1_000_000)
     parser.add_argument("--ab-parent", metavar="DIR",
                         help="another checkout (the parent commit): time its tiled_forward, "
-                             "tiled_backward, group_reduce and binkeys beside this tree's on the "
+                             "tiled_backward, group_reduce, binkeys and segsum_compact beside this tree's on the "
                              "same inputs (phase 12)")
     args = parser.parse_args(argv)
     try:

@@ -150,19 +150,26 @@ def segsum_compact(rows: torch.Tensor, g: torch.Tensor, max_groups: int) -> torc
     n = rows.shape[0]
     _check_rows("segsum_compact", rows, n)
     _check_index("segsum_compact", "g", g, n, rows.device)
+    if n >= 2**31:
+        raise ValueError(f"segsum_compact: at most 2^31 - 1 rows, got {n}")
     dev = rows.device
     out = torch.empty((max_groups, NUM_COLS), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    slot = group_slots(g)
-    fn = _build.load("segsum_compact").egs_segsum_compact
+    lib = _build.load("segsum_compact")
+    lib.egs_segsum_compact_span.restype = ctypes.c_longlong
+    span = lib.egs_segsum_compact_span()
+    # one status word per block of the kernel's decoupled look-back and the
+    # blocks' ticket counter, zeroed by the launch itself (one memset)
+    status = torch.empty(((n + span - 1) // span + 1,), dtype=torch.int64, device=dev)
+    fn = lib.egs_segsum_compact
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     err = fn(
-        rows.data_ptr(), g.data_ptr(), slot.data_ptr(), n, max_groups, out.data_ptr(),
+        rows.data_ptr(), g.data_ptr(), n, max_groups, status.data_ptr(), out.data_ptr(),
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -1,2 +1,7 @@
-"""Scene data pipeline. Only the host-side prefetcher is ported so far; the
-COLMAP and Blender loaders wait (ROADMAP.md Queue 1)."""
+"""Scene/data layer: the COLMAP and Blender loaders, frames, point clouds,
+the host-side prefetcher and the device-resident frame cache."""
+
+from .scene import Scene
+from .types import Frame, Pointcloud
+
+__all__ = ["Frame", "Pointcloud", "Scene"]

@@ -8,11 +8,16 @@ steps late so the host never waits on the card. PyTorch runs eagerly, so
 there is no jit and no background precompiler: a new capacity or SH degree
 needs no rebuild.
 
+``train(cfg)`` with no scene object builds the ``Scene`` from ``cfg.data``
+(COLMAP or Blender), keeps the train and eval splits on the device
+(``data_device_cache``, streaming when they do not fit its budget),
+evaluates the eval frames at step 1 and every ``eval_every`` steps and
+records a profiler window when ``profile_steps`` and ``output`` are set.
+
 Waiting for later parts of the port (each raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item): the scene loaders (``scene=None``), eval
-frames, the device-resident frame cache, ``mesh_shape``, ``view_online``
-and the ``profile_steps`` window; the batched multi-camera step is not
-ported yet either.
+naming its ``ROADMAP.md`` item): ``mesh_shape`` and ``view_online`` with
+an output directory; the batched multi-camera step is not ported yet
+either.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import dataclasses
 import functools
 import logging
 import math
+import random
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
@@ -318,54 +324,41 @@ class _PendingScalars:
 
 
 def _frame_tensors(data: Dict[str, Any], device, keys=("w2c", "K", "image", "mask")):
-    """The frame dict's arrays as f32 tensors on ``device``."""
-    return [torch.as_tensor(np.asarray(data[k], np.float32)).to(device) for k in keys]
+    """The frame dict's arrays (numpy, or tensors from the frame cache) as
+    f32 tensors on ``device``."""
+    return [torch.as_tensor(data[k], dtype=torch.float32, device=device) for k in keys]
 
 
 def train(
     cfg: Config, scene=None, resume_from: Optional[str] = None,
     device: str | torch.device = "cuda",
 ) -> TrainLoopState:
-    """Full single-device training run over ``scene`` (an object with the
-    JAX ``Scene``'s interface: ``pc.xyzs``, ``pc.rgbs``, ``pc.nbr_points``,
-    ``nbr_data(split)``, ``get_data(split, i)``). Returns the final loop
-    state (also checkpointed at ``save_model_iterations`` when ``output``
-    is set). ``resume_from``: a checkpoint path; with optimizer state the
-    run continues exactly, without it Adam restarts."""
-    from ..scene.scene import prefetch_frames
+    """Full single-device training run. ``scene`` is a ``Scene`` or any
+    object with its interface (``pc.xyzs``, ``pc.rgbs``, ``pc.nbr_points``,
+    ``nbr_data(split)``, ``get_data(split, i)``; for the frame cache also
+    ``frames``, ``train_indexes`` and ``eval_indexes``); None builds the
+    ``Scene`` from ``cfg.data``. Returns the final loop state (also
+    checkpointed at ``save_model_iterations`` when ``output`` is set).
+    ``resume_from``: a checkpoint path; with optimizer state the run
+    continues exactly, without it Adam restarts."""
+    from ..evaluation.evaluator import Evaluator
+    from ..scene.scene import Scene, prefetch_frames
     from ..utils.checkpoint import load_checkpoint, save_checkpoint
     from ..utils.tb import create_tb_writer, tb_report
 
     dev = resolve_device(device)
-    if scene is None:
-        raise NotImplementedError(
-            "train() needs a scene object: the COLMAP/Blender loaders are not "
-            "ported yet (ROADMAP.md Queue 1 item 4)"
-        )
-    if scene.nbr_data("eval") > 0:
-        raise NotImplementedError(
-            "eval frames: evaluation is not ported yet (ROADMAP.md Queue 1 item 4)"
-        )
     if cfg.mesh_shape:
         raise NotImplementedError(
             f"mesh_shape {cfg.mesh_shape!r}: multi-device training is not ported "
             "yet (ROADMAP.md Queue 1 item 7)"
         )
-    if cfg.data_device_cache:
-        raise NotImplementedError(
-            "data_device_cache: the device-resident frame cache is not ported "
-            "yet (ROADMAP.md Queue 1 item 4); set data_device_cache: false"
-        )
-    if cfg.profile_steps > 0:
-        raise NotImplementedError(
-            "profile_steps: the training profiler window is not ported yet "
-            "(utils/profiling.py, ROADMAP.md Queue 1 item 4)"
-        )
-    if cfg.view_online:
+    if cfg.view_online and cfg.output is not None:
         raise NotImplementedError(
             "view_online: the training viewer is not ported yet (ROADMAP.md "
             "Queue 1 item 5)"
         )
+    if scene is None:
+        scene = Scene.from_config(cfg, cfg.output)
 
     if resume_from is not None:
         model, sh_deg, start_step, adam = load_checkpoint(Path(resume_from), dev)
@@ -457,6 +450,7 @@ def train(
             render_fn = get_render_fn(cfg)
             train_step = make_train_step(cfg, render_fn)
             isect_counter = _make_counter()
+            evaluator.invalidate(render_fn)
 
     def maybe_grow_isect_mult(n: int, at_step: int) -> None:
         """Grow the intersection capacity when the binned count nears it.
@@ -487,6 +481,7 @@ def train(
             logger.info(f"intersections {n} near capacity {cap:.0f}: raising isect_mult to {cfg.isect_mult}")
             render_fn = get_render_fn(cfg)
             train_step = make_train_step(cfg, render_fn)
+            evaluator.invalidate(render_fn)
 
     def check_isect_capacity(data):
         nonlocal render_fn, train_step, isect_counter, autotuned
@@ -511,12 +506,14 @@ def train(
             render_fn = get_render_fn(cfg)
             train_step = make_train_step(cfg, render_fn)
             isect_counter = _make_counter()
+            evaluator.invalidate(render_fn)
         maybe_grow_isect_mult(n, loop.step)
 
     densify_step = make_densify_step(cfg)
     means_lr = log_lerp_schedule(
         cfg.means_lr_init, cfg.means_lr_final, cfg.means_lr_schedule_max_steps
     )
+    evaluator = Evaluator(cfg.eval_render_num, render_fn)
     generator = torch.Generator(device=dev).manual_seed(cfg.random_seed)
 
     tb_writer = None
@@ -526,9 +523,26 @@ def train(
         tb_writer = create_tb_writer(str(tb_path))
 
     save_iters = set(cfg.save_model_iterations)
+    background = _background(cfg, dev)
+
+    # device-resident frames: one upload at start, each step's frame an
+    # index on the card (streaming when a split does not fit the budget);
+    # the eval split unpadded, as the JAX trainer keeps it
+    frame_cache = eval_cache = None
+    if cfg.data_device_cache:
+        from ..scene.device_cache import build_cache
+
+        workers = max(1, cfg.dataloader_workers)
+        frame_cache = build_cache(scene, "train", cfg.data_device_cache_mb,
+                                  num_workers=workers, device=dev)
+        if scene.nbr_data("eval") > 0 and frame_cache is not None:
+            eval_cache = build_cache(scene, "eval", cfg.data_device_cache_mb,
+                                     num_workers=workers, device=dev)
+
     t_start = time.time()
     last_loss = float("nan")
     autotuned = False
+    profiler = None  # the profile_steps window, steps 10 .. 10 + profile_steps
     # delayed loss readback: sampled steps' scalars are read three samples
     # later, so the host never waits for the card inside the loop
     pending_losses: list = []
@@ -547,7 +561,13 @@ def train(
                     tb_report(tb_writer, old_step, {"train/num_isects": n_isects})
                 maybe_grow_isect_mult(int(n_isects), old_step)
 
-    for data in prefetch_frames(scene, "train", shuffle=True, num_workers=cfg.dataloader_workers):
+    if frame_cache is not None:  # the same order as streaming's shuffle
+        shuffled = list(range(scene.nbr_data("train")))
+        random.shuffle(shuffled)
+        data_iter = (frame_cache.get(i) for i in shuffled)
+    else:
+        data_iter = prefetch_frames(scene, "train", shuffle=True, num_workers=cfg.dataloader_workers)
+    for data in data_iter:
         if loop.step >= cfg.total_iterations:
             # resumed runs start mid-schedule; the index tiling still spans
             # the full budget
@@ -559,6 +579,16 @@ def train(
         if not autotuned:
             autotune_isect_mult(data)
             autotuned = True
+
+        if cfg.profile_steps > 0 and cfg.output is not None:
+            if step == 10 and profiler is None:
+                from ..utils.profiling import Trace
+
+                profiler = Trace(Path(cfg.output) / "profile")
+                profiler.start()
+            elif profiler is not None and step == 10 + cfg.profile_steps:
+                profiler.stop()
+                profiler = None
 
         in_refine = cfg.refine_start < step <= cfg.refine_stop
         densify_now = in_refine and (step - cfg.refine_start) % cfg.refine_every == 0
@@ -588,6 +618,20 @@ def train(
                 adam=loop.adam if cfg.save_optimizer_state else None,
             )
 
+        if scene.nbr_data("eval") > 0 and (step == 1 or step % cfg.eval_every == 0):
+            metrics = evaluator.evaluate(
+                scene, "eval", loop.model, loop.active_sh_degree, background,
+                num_workers=cfg.dataloader_workers, cache=eval_cache,
+            )
+            for k, v in metrics.items():
+                if "render" in k:
+                    all_tb_info[f"render/{k}"] = v
+                elif k in ("psnr", "ssim", "lpips", "lpips_proxy", "fps", "latency_ms",
+                           "latency_device_ms"):
+                    all_tb_info[f"eval/{k}"] = v
+            logger.info("eval @ step %d: %s", step, ", ".join(
+                f"{k}={v:.4f}" for k, v in metrics.items() if isinstance(v, float)))
+
         if densify_now:
             info = run_densify_with_growth(loop, densify_step, generator, cfg)
             # on the grown population, so the next step's capacity covers it
@@ -616,6 +660,8 @@ def train(
             )
 
     _drain_losses(min_pending=0)
+    if profiler is not None:  # the run ended inside the window
+        profiler.stop()
     if tb_writer is not None:
         tb_writer.close()
     return loop

@@ -1,7 +1,9 @@
 """The port stands alone: it imports nothing of JAX, Flax or the JAX package,
 and its entry points refuse to run on the CPU unless asked to."""
 
+import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -34,7 +36,13 @@ TRAINING_MODULES = (
     "ops.clip", "ops.ssim", "ops.lr_schedule", "ops.kernels.segments",
     "ops.kernels.group_reduce", "models.loss", "models.optimizer",
     "models.density", "scene.scene", "utils.tb", "training.trainer",
+    "scene.image_io", "scene.types", "scene.colmap", "scene.blender",
+    "scene.device_cache", "native", "utils.synthetic", "utils.profiling",
+    "evaluation.metrics", "evaluation.lpips", "evaluation.evaluator",
 )
+# the one string of the port that names the JAX package: the checkpoint
+# format tag both packages write and read
+SHARED_TAGS = {"easy_gaussian_splatting_tpu/v1"}
 
 
 def test_port_imports_without_jax():
@@ -50,6 +58,41 @@ def test_port_imports_without_jax():
     imported = set(names.split())
     for mod in TRAINING_MODULES:
         assert f"easy_gaussian_splatting_torch.{mod}" in imported, mod
+
+
+def _code_strings(path: Path):
+    """The string constants of a Python file that are not docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = {
+        id(node.body[0].value) for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+        and node.body and isinstance(node.body[0], ast.Expr)
+        and isinstance(node.body[0].value, ast.Constant)
+    }
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs]
+
+
+def test_port_names_no_path_inside_the_jax_package():
+    """No code of the port (outside its comments and docstrings, which cite
+    each function's counterpart) names anything inside
+    ``easy_gaussian_splatting_tpu``: the native library builds from the
+    port's own copy of its source, and no kernel reads the JAX package's
+    files."""
+    pkg = REPO / "easy_gaussian_splatting_torch"
+    bad = []
+    for path in sorted(pkg.rglob("*.py")):
+        bad += [(path.name, line, v) for line, v in _code_strings(path)
+                if "easy_gaussian_splatting_tpu" in v and v not in SHARED_TAGS]
+    for path in sorted([*pkg.rglob("*.cu"), *pkg.rglob("*.cuh"), *pkg.rglob("*.cpp")]):
+        code = re.sub(r"//[^\n]*|/\*.*?\*/", "", path.read_text(), flags=re.S)
+        if "easy_gaussian_splatting_tpu" in code:
+            bad.append((path.name, 0, "code"))
+    assert not bad
+    from easy_gaussian_splatting_torch import native
+
+    assert native._SRC == pkg / "native" / "egs_native.cpp" and native._SRC.exists()
+    assert native.BUILD_DIR == REPO / "build" / "native"
 
 
 def test_entry_points_refuse_cpu_unless_asked(monkeypatch, tmp_path):

@@ -258,6 +258,54 @@ def test_segsum_compact_matches_plain(cuda, rng):
     assert ((got - want).abs() <= 1e-5 * mag).all()
 
 
+def _compact_case(rng, case):
+    """(ids, max_groups) of one ``segsum_compact`` card case; the kernel's
+    blocks own 512 rows each."""
+    if case == "lengths_1_300":
+        sizes = rng.integers(1, 301, size=3000)
+    elif case == "longer_than_a_span":  # groups that start mid-span and run over several
+        sizes = np.concatenate([rng.integers(1, 17, size=3000), [5000], rng.integers(1, 5, size=700),
+                                [1543], [1], [513]])
+    elif case == "ragged_n":
+        sizes = rng.integers(1, 17, size=2000)
+        sizes[-1] += 512 - sizes.sum() % 512 + 129  # n = 512 k + 129
+    elif case == "n_1":
+        sizes = np.array([1])
+    else:  # "cut_mid_span", "ids_past_2_24"
+        sizes = rng.integers(1, 17, size=20000)
+    g = np.repeat(np.arange(sizes.shape[0]), sizes)
+    groups = sizes.shape[0]
+    if case == "ids_past_2_24":  # gaps between ids; f32 would merge neighbours here
+        g = 2**24 + 3 * g
+    if case == "cut_mid_span":
+        return g.astype(np.int32), groups // 2 + 37
+    return g.astype(np.int32), groups + 1
+
+
+@pytest.mark.parametrize("case", ["lengths_1_300", "longer_than_a_span", "ragged_n", "n_1",
+                                  "cut_mid_span", "ids_past_2_24"])
+def test_segsum_compact_cases(cuda, rng, case):
+    """One launch (and one memset) per call across the kernel's blocks and
+    their look-back: each written group's sum within 1e-5 of its absolute
+    sum (the plain version's ``index_add_`` adds in another order on the
+    card), and a second launch gives the same bits (sums in row order, no
+    atomics)."""
+    g, mg = _compact_case(rng, case)
+    assert case != "ragged_n" or g.shape[0] % 512 == 129
+    rows = torch.as_tensor(rng.normal(size=(g.shape[0], 16)).astype(np.float32), device=cuda)
+    gt = torch.as_tensor(g, device=cuda)
+    before = seg.compact_launches
+    got = seg.segsum_compact(rows, gt, mg)
+    again = seg.segsum_compact(rows, gt, mg)
+    want = seg.segsum_compact_plain(rows, gt, mg)
+    mag = seg.segsum_compact_plain(rows.abs(), gt, mg)
+    torch.cuda.synchronize()
+    assert seg.compact_launches == before + 2
+    k = min(int(np.unique(g).shape[0]), mg)
+    assert torch.equal(got[:k], again[:k])
+    assert ((got[:k] - want[:k]).abs() <= 1e-5 * mag[:k]).all()
+
+
 @pytest.mark.parametrize("c", [1000, 300001])
 def test_monotone_expand_matches_plain(cuda, rng, c):
     """A gather of present rows: equal to the plain version bit for bit, at a
@@ -339,3 +387,49 @@ def test_wrappers_check_their_inputs(cuda):
         gr.group_reduce(rows.t().contiguous().t(), 2)
     with pytest.raises(ValueError):
         gr.group_reduce(torch.zeros(4 * 16 + 1, device=cuda)[1:].view(4, 16), 2)  # unaligned
+
+
+def test_eval_latency_chain_replays_a_cuda_graph(cuda, rng):
+    """The evaluator's device latency captures its chain of renders in one
+    CUDA graph (each render records one ``binkeys`` and one
+    ``tiled_forward`` launch into it) and times a replay; ``StepTimer`` on
+    the card reads CUDA events. Both give finite positive times, and the
+    renderer still runs eagerly after the capture."""
+    from types import SimpleNamespace
+
+    from easy_gaussian_splatting_torch.evaluation.evaluator import LATENCY_CHAIN, Evaluator
+    from easy_gaussian_splatting_torch.models import gaussians as tg
+    from easy_gaussian_splatting_torch.training.config import config_from_dict
+    from easy_gaussian_splatting_torch.training.trainer import get_render_fn
+    from easy_gaussian_splatting_torch.utils.profiling import StepTimer
+
+    n = 512
+    arrays = dict(
+        means=rng.uniform([-1.0, -1.0, 3.0], [1.0, 1.0, 5.0], size=(n, 3)),
+        log_scales=rng.uniform(-3.5, -2.5, size=(n, 3)),
+        quats=rng.normal(size=(n, 4)),
+        sh_0=rng.normal(0.0, 0.8, size=(n, 1, 3)),
+        sh_rest=rng.normal(0.0, 0.2, size=(n, 15, 3)),
+        logit_opacities=rng.normal(0.0, 1.5, size=n),
+    )
+    model = SimpleNamespace(params=tg.params_from_numpy(arrays, cuda),
+                            alive=torch.ones(n, dtype=torch.bool, device=cuda))
+    height, width = 48, 64
+    K = torch.tensor([[60.0, 0, width / 2], [0, 60.0, height / 2], [0, 0, 1]], device=cuda)
+    data = dict(w2c=torch.eye(4, device=cuda), K=K, width=width, height=height)
+    render_fn = get_render_fn(config_from_dict(dict(renderer="tiled", tile_size=16)))
+    ev = Evaluator(0, render_fn)
+    bg = torch.zeros(3, device=cuda)
+    eager = ev._render(model, data, 3, bg)
+    before = (bk.launches, tr.launches)
+    ms = ev._chain_ms(model, data, 3, bg)
+    assert (bk.launches, tr.launches) == (before[0] + LATENCY_CHAIN, before[1] + LATENCY_CHAIN)
+    assert np.isfinite(ms) and ms > 0
+    assert torch.equal(ev._render(model, data, 3, bg), eager)
+    timer = StepTimer(cuda)
+    for _ in range(3):
+        timer.start()
+        ev._render(model, data, 3, bg)
+        timer.stop()
+    d = timer.durations_ms()
+    assert len(d) == 3 and all(np.isfinite(x) and x > 0 for x in d)
