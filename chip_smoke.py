@@ -91,16 +91,38 @@ the data loaders takes:
    clock and CUDA events), loop-iteration medians and peak device memory,
    then the same with each frame streamed from the host
    (``data_device_cache: false``), decoded ahead by the prefetch threads;
-   (b) the convergence check of ``scripts/validate_e2e.py``'s defaults: a
-   128x128 Blender scene of 300 SH-0 Gaussians rendered by the port's
-   oracle, 800 steps, the test frames' PSNR, SSIM and proxy LPIPS after
-   re-seeding; below 22 dB fails.
+   (b) the convergence check of ``scripts/validate_e2e.py``'s defaults,
+   through the port's e2e script (``validate_e2e.main``): a 128x128
+   Blender scene of 300 SH-0 Gaussians rendered by the port's oracle, 800
+   steps, the test frames' PSNR, SSIM and proxy LPIPS after re-seeding;
+   below 22 dB fails;
+
+and then through the multi-camera step and the command lines:
+
+14. the batched step (run between phases 12 and 13, on phase 8's state
+   and binning): ``make_batched_train_step`` on B = 4 ring views at
+   800x800, held against its sequential reference on the card (the max
+   difference and whether the two are equal bit for bit printed), run
+   twice on the same inputs, ``binkeys``, ``tiled_forward``,
+   ``tiled_backward`` and ``segsum_band`` each launched B times a step,
+   no view truncated; the median of 10 chained steps, per view, beside
+   phase 10's single-view median, and peak device memory;
+15. (a) ``python -m easy_gaussian_splatting_torch.eval`` on phase 13 (a)'s
+   run directory: the binning tuned again, both splits' metrics finite,
+   no frame past its capacity; (b) ``train(cfg)`` on phase 13 (a)'s scene
+   with ``view_online`` for 24 steps, a client posting 1280x720 ``/render``
+   requests every 16 ms, first from a thread of this process, then from a
+   process of its own (as a browser): every request answered from the
+   mailbox, every frame rendered by the loop on its own thread and not
+   truncated, the step median beside phase 13's cached median.
 
 Then one JSON line of the seven kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
 for the first four and that of its reduction in phase 11 for the other
 three, ``launches_served`` the viewer's build and requests of phase 5,
-``launches_data_path`` the cached ``train(cfg)`` run of phase 13 (a).
+``launches_data_path`` the cached ``train(cfg)`` run of phase 13 (a),
+``launches_batched`` phase 14's 10 timed batched steps and
+``launches_eval_cli`` phase 15's eval.
 ``ms``, ``plain_ms``, ``bound_ms`` and ``max_abs_err`` come from the served
 800x800 frame for binkeys and tiled_forward, and from the first train
 step for the others; ``library_ms`` is null where no one PyTorch call
@@ -1380,16 +1402,9 @@ DATA_SCHEDULE = dict(
 DATA_TIMED = range(15, 29)  # steps 16-29: after the profiler window, before the event
 STREAM_STEPS = 30  # the streamed run (>= the 21 train frames the Scene tiles)
 STREAM_TIMED = range(10, 29)  # its steps 11-29
-# scripts/validate_e2e.py's defaults (--iters 800 --size 128) and its
-# compressed schedule; its own gate
+# scripts/validate_e2e.py's defaults (--iters 800 --size 128) and its own
+# gate, run through the port's e2e script
 E2E_ITERS, E2E_SIZE, E2E_MIN_PSNR = 800, 128, 22.0
-E2E_SCHEDULE = dict(
-    eval_every=max(200, E2E_ITERS // 4), eval_render_num=1,
-    sh_degree_interval=max(100, E2E_ITERS // 8), refine_start=100,
-    refine_stop=int(E2E_ITERS * 0.6), refine_every=100,
-    reset_opacities_every=max(600, E2E_ITERS // 3), save_model_iterations=[E2E_ITERS],
-    log_every=100,
-)
 
 
 @contextlib.contextmanager
@@ -1429,7 +1444,7 @@ def train_data_path(scene_dir: Path, out_dir: Path, device, card: str) -> dict:
 
     import torch
 
-    from easy_gaussian_splatting_torch.training.config import load_config
+    from easy_gaussian_splatting_torch.training.config import dump_config, load_config
     from easy_gaussian_splatting_torch.utils.checkpoint import load_checkpoint
 
     cfg = load_config(REPO / "configs" / "tandt_db.yaml", **DATA_SCHEDULE, data=str(scene_dir),
@@ -1437,6 +1452,9 @@ def train_data_path(scene_dir: Path, out_dir: Path, device, card: str) -> dict:
     check(cfg.data_device_cache, "the config turned the device frame cache off")
     log("[13] config: configs/tandt_db.yaml with " + json.dumps(DATA_SCHEDULE)
         + f", data {scene_dir.name}, data_device_cache {cfg.data_device_cache}")
+    # the resolved config, as the train CLI writes it: phase 15's eval reads it
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dump_config(cfg, out_dir / "config.yaml")
     random.seed(cfg.random_seed)
     np.random.seed(cfg.random_seed)
     torch.cuda.synchronize()
@@ -1527,50 +1545,332 @@ def train_data_path(scene_dir: Path, out_dir: Path, device, card: str) -> dict:
                 peak=peak, stream_step_ms=s_step, stream_it_ms=s_it)
 
 
-def convergence(scene_dir: Path, out_dir: Path, seed: int, device) -> dict:
-    """Phase 13 (b): scripts/validate_e2e.py's defaults through the port: a
-    Blender scene rendered by the port's oracle, ``train(cfg)`` for 800
-    steps, then the eval split (the test directory) of a Scene rebuilt
-    after re-seeding, as the script does."""
+def convergence(workdir: Path) -> dict:
+    """Phase 13 (b): scripts/validate_e2e.py's defaults through the port's e2e
+    script (``validate_e2e.main``): a Blender scene rendered by the port's
+    oracle, ``train(cfg)`` for 800 steps, then the eval split (the test
+    directory) of a Scene rebuilt after re-seeding; below the gate fails."""
+    from easy_gaussian_splatting_torch import validate_e2e
+
+    argv = ["--iters", str(E2E_ITERS), "--size", str(E2E_SIZE), "--min-psnr", str(E2E_MIN_PSNR),
+            "--out", str(workdir), "--device", DEVICE]
+    log("[13] e2e: python -m easy_gaussian_splatting_torch.validate_e2e " + " ".join(argv))
+    out = validate_e2e.main(argv)
+    log(f"[13] e2e: {E2E_ITERS} steps in {out['train_s']:.1f} s "
+        f"({E2E_ITERS / out['train_s']:.1f} it/s), {out['gaussians']} gaussians; eval on the test "
+        f"frames: psnr {out['psnr']:.2f} dB, ssim {out['ssim']:.4f}, lpips_proxy "
+        f"{out['lpips_proxy']:.4f} (gate {E2E_MIN_PSNR} dB)")
+    check(out["passed"] and out["psnr"] >= E2E_MIN_PSNR,
+          f"e2e psnr {out['psnr']:.2f} below {E2E_MIN_PSNR}")
+    return out
+
+
+# ----------------------------------------------------------------- phase 14
+BATCH = 4  # bench.py's batched point
+BATCH_STEPS = 10  # timed batched steps, chained as training chains them
+BATCH_KERNELS = ("binkeys", "tiled_forward", "tiled_backward", "segsum_band")
+
+
+def batched_step(cfg, state0, frames, single_ms: float, device, card: str) -> dict:
+    """Phase 14: the port's ``make_batched_train_step`` on the first
+    ``BATCH`` ring views at phase 8's state and binning: held against its
+    sequential reference (``make_grad_fn`` per view, the gradients summed in
+    view order and divided by B, the statistics view by view, one
+    ``adam_update``), each main-path kernel launched B times a step, no
+    view truncated; then ``BATCH_STEPS`` chained steps timed."""
+    import torch
+
+    from easy_gaussian_splatting_torch.models.density import update_statistics
+    from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES, GaussianParams
+    from easy_gaussian_splatting_torch.models.optimizer import adam_update, init_adam_state
+    from easy_gaussian_splatting_torch.ops.rasterize_tiled import isect_capacity
+    from easy_gaussian_splatting_torch.training import trainer as ttrainer
+
+    views = [torch.stack([torch.as_tensor(f[k], device=device) for f in frames[:BATCH]])
+             for k in ("w2c", "K", "image", "mask")]
+    kw = dict(height=800, width=800, sh_degree=3)
+    lr = cfg.means_lr_init
+    render_fn = ttrainer.get_render_fn(cfg)
+    step = ttrainer.make_batched_train_step(cfg, render_fn)
+    adam0 = init_adam_state(state0.params)
+    icap = isect_capacity(state0.capacity, cfg.isect_mult)
+
+    # the sequential reference, on the card
+    grad_fn = ttrainer.make_grad_fn(cfg, render_fn)
+    total, stats = state0.params.map(torch.zeros_like), state0.stats
+    for i in range(BATCH):
+        g, a, _, radii = grad_fn(state0, *(v[i] for v in views), **kw)
+        stats = update_statistics(stats, radii, a, 800, 800)
+        total = GaussianParams(**{n: getattr(total, n) + getattr(g, n) for n in PARAM_NAMES})
+        del g, a, radii
+    lrs = dict(means=lr, log_scales=cfg.log_scales_lr, quats=cfg.quats_lr, sh_0=cfg.sh_0_lr,
+               sh_rest=cfg.sh_rest_lr, logit_opacities=cfg.logit_opacities_lr)
+    want_params, want_adam = adam_update(state0.params, total.map(lambda x: x / float(BATCH)),
+                                         adam0, lrs, {n: False for n in PARAM_NAMES})
+    del total
+
+    zero_counts()
+    got, got_adam, ld = step(state0, adam0, *views, lr, True, False, False, **kw)
+    torch.cuda.synchronize()
+    one = counts()
+    check(all(one[k] == BATCH for k in BATCH_KERNELS),
+          f"one batched step launched {one}, want {BATCH} of each of {BATCH_KERNELS}")
+    check(int(ld["isects"]) <= icap, f"a view was truncated: {int(ld['isects'])} > {icap}")
+    diffs, equal = {}, True
+    for name in PARAM_NAMES:
+        for what, a, b in (("params", got.params, want_params), ("mu", got_adam.mu, want_adam.mu),
+                           ("nu", got_adam.nu, want_adam.nu)):
+            x, y = getattr(a, name), getattr(b, name)
+            equal &= torch.equal(x, y)
+            diffs[f"{what}.{name}"] = float((x - y).abs().max())
+        # where the gradient clears 1e-3 of the group's largest, the first
+        # Adam step moves a parameter by ~lr * sign(g) in both
+        mu = getattr(want_adam.mu, name).abs()
+        clear = mu > 1e-3 * mu.max()
+        d = (getattr(got.params, name) - getattr(want_params, name)).abs()[clear]
+        d = float(d.max()) if d.numel() else 0.0
+        check(d <= 1e-6 + 1e-3 * lrs[name],
+              f"batched step: {name} differs from the sequential reference by {d:.3e}")
+        m_got, m_want = getattr(got_adam.mu, name), getattr(want_adam.mu, name)
+        rel = float((m_got - m_want).norm() / m_want.norm().clamp(min=1e-30))
+        check(rel <= STEP_GRAD_RTOL, f"batched step: {name}'s mean gradient off by {rel:.2e}")
+    for k in ("grad_norm_accum", "collecting_counts", "max_radii"):
+        x, y = getattr(got.stats, k), getattr(stats, k)
+        equal &= torch.equal(x, y)
+        diffs[f"stats.{k}"] = float((x - y).abs().max())
+    again = step(state0, adam0, *views, lr, True, False, False, **kw)[0]
+    repeat = all(torch.equal(getattr(again.params, n), getattr(got.params, n)) for n in PARAM_NAMES)
+    log(f"[14] batched step, B = {BATCH} ring views 800x800, {state0.num_alive()} gaussians "
+        f"(capacity {state0.capacity}), isect_mult {cfg.isect_mult}: worst view {int(ld['isects'])} "
+        f"intersections of capacity {icap}; launches in one step "
+        + ", ".join(f"{k} {one[k]}" for k in BATCH_KERNELS))
+    log(f"[14] vs the sequential reference on the card: "
+        + ("bit for bit equal" if equal else "not bit for bit") + "; max |diff| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items() if v or k.startswith("params")))
+    log(f"[14] a second batched step on the same inputs: "
+        + ("equal bit for bit" if repeat else "differs") + f"; loss {float(ld['total']):.6f}")
+    del got, got_adam, again, want_params, want_adam, stats
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    model, adam, times, worst = state0, adam0, [], []
+    for _ in range(BATCH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, adam, ld = step(model, adam, *views, lr, True, False, False, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        worst.append(int(ld["isects"]))
+    timed = counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(timed[k] == BATCH * BATCH_STEPS for k in BATCH_KERNELS),
+          f"{BATCH_STEPS} batched steps launched {timed}")
+    check(max(worst) <= icap, f"a batched step was truncated: {max(worst)} > {icap}")
+    med = float(np.median(times[1:]))
+    log(f"[14] card: {card}")
+    log(f"[14] {BATCH_STEPS} batched steps (host clock between synchronizes): median of steps "
+        f"2-{BATCH_STEPS} {med:.2f} ms, {med / BATCH:.2f} ms per view, against phase 10's "
+        f"single-view step median {single_ms:.2f} ms; each " + " ".join(f"{x:.1f}" for x in times)
+        + f"; peak device memory {peak / 2**20:.0f} MiB; launches " + ", ".join(
+            f"{k} {timed[k]}" for k in BATCH_KERNELS))
+    del model, adam
+    profile_device(lambda: step(state0, adam0, *views, lr, True, False, False, **kw), 3,
+                   "batched step", "14", top=8)
+    return dict(launches=timed, step_ms=med, peak=peak)
+
+
+# ----------------------------------------------------------------- phase 15
+VIEW_STEPS = 24  # the view_online run (>= the 21 train frames the Scene tiles)
+VIEW_TIMED = range(5, 23)  # its steps 6-23
+VIEW_REQUEST = dict(yaw=0.6, pitch=0.3, radius=4.0, target=[0, 0, 0], fov=1.0,
+                    width=1280, height=720)
+
+
+def eval_cli(run_dir: Path) -> dict:
+    """Phase 15 (a): the port's eval command on phase 13 (a)'s run directory:
+    the binning tuned again, no truncated frame, finite metrics per split."""
+    from easy_gaussian_splatting_torch import eval as teval
+    from easy_gaussian_splatting_torch.training import trainer as ttrainer
+
+    tuned = []
+    tune = ttrainer.tune_inference_cfg
+
+    def record(cfg, *a, **k):
+        out = tune(cfg, *a, **k)
+        tuned.append(out.isect_mult)
+        return out
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with swapped(ttrainer, "tune_inference_cfg", record):
+        results = teval.main(["-p", str(run_dir), "--device", DEVICE])
+    secs = time.perf_counter() - t0
+    launches = counts()
+    check(len(tuned) == 1 and set(results) == {"train", "eval"},
+          f"eval: {len(tuned)} autotunes, splits {sorted(results)}")
+    for split, m in results.items():
+        vals = {k: m[k] for k in ("psnr", "ssim", "lpips_proxy", "fps", "latency_ms",
+                                  "latency_device_ms")}
+        check(all(math.isfinite(v) for v in vals.values()), f"eval {split}: {vals}")
+        check(m["max_isects"] <= m["isect_cap"], f"eval {split}: a truncated frame")
+        log(f"[15] eval {split} split: " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+            + f"; worst frame {m['max_isects']} intersections of capacity {m['isect_cap']}, "
+            f"{m['rerenders']} passes again")
+    check(launches["binkeys"] > 0 and launches["tiled_forward"] > 0, f"eval launched {launches}")
+    log(f"[15] eval: python -m easy_gaussian_splatting_torch.eval -p {run_dir.name} in "
+        f"{secs:.1f} s, autotuned isect_mult {tuned[0]}; launches binkeys {launches['binkeys']}, "
+        f"tiled_forward {launches['tiled_forward']}")
+    return dict(launches=launches)
+
+
+# the out-of-process client: posts the request every 16 ms until the server
+# refuses (train() stopped it), then prints each answered request's ms
+CLIENT_SRC = r"""
+import json, sys, time, urllib.request
+port, payload, times = int(sys.argv[1]), sys.argv[2].encode(), []
+while True:
+    req = urllib.request.Request(f"http://localhost:{port}/render", data=payload, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            if r.headers.get("Content-Type") != "image/jpeg" or not r.read():
+                break
+    except OSError:
+        break
+    times.append((time.perf_counter() - t0) * 1e3)
+    time.sleep(0.016)
+print(json.dumps(times))
+"""
+
+
+class ThreadClient:
+    """Posts ``VIEW_REQUEST`` every 16 ms from a thread of this process."""
+
+    def __init__(self, port: int):
+        import threading
+
+        self.port, self.times, self.errors = port, [], []
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self.done.is_set():
+            try:
+                _, ctype, ms = http(self.port, "/render", VIEW_REQUEST)
+                if ctype != "image/jpeg":
+                    self.errors.append(f"content type {ctype}")
+                    return
+                self.times.append(ms)
+            except Exception as e:  # recorded and checked by the phase
+                self.errors.append(repr(e))
+                return
+            time.sleep(0.016)
+
+    def finish(self, stop):
+        self.close()
+        self.thread.join(60)
+        if self.thread.is_alive():
+            self.errors.append("the client thread did not end")
+        stop()
+
+    def close(self):
+        self.done.set()
+
+
+class ProcessClient:
+    """Posts ``VIEW_REQUEST`` every 16 ms from a process of its own, as a
+    browser does."""
+
+    def __init__(self, port: int):
+        self.times, self.errors = [], []
+        self.proc = subprocess.Popen([sys.executable, "-c", CLIENT_SRC, str(port),
+                                      json.dumps(VIEW_REQUEST)], stdout=subprocess.PIPE, text=True)
+
+    def finish(self, stop):
+        stop()  # the client ends at its first refused request
+        try:
+            out, _ = self.proc.communicate(timeout=60)
+            self.times = json.loads(out)
+        except (subprocess.TimeoutExpired, ValueError) as e:
+            self.errors.append(repr(e))
+        finally:
+            self.close()
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def view_online(scene_dir: Path, out_dir: Path, cached_ms: float, device, card: str,
+                client_kind) -> dict:
+    """Phase 15 (b): ``train(cfg)`` on phase 13 (a)'s scene with the training
+    viewer, a client (``ThreadClient`` or ``ProcessClient``) posting 1280x720
+    ``/render`` requests at the page's dragging cadence (16 ms) while the
+    loop renders the newest one between steps."""
     import random
+    import threading
 
     import torch
 
-    from easy_gaussian_splatting_torch.evaluation.evaluator import Evaluator
-    from easy_gaussian_splatting_torch.scene.scene import Scene
-    from easy_gaussian_splatting_torch.training.config import config_from_dict
-    from easy_gaussian_splatting_torch.training.trainer import get_render_fn, train
-    from easy_gaussian_splatting_torch.utils.synthetic import generate_blender_scene
+    from easy_gaussian_splatting_torch.training.config import load_config
+    from easy_gaussian_splatting_torch.viewer import integration
 
-    t0 = time.perf_counter()
-    generate_blender_scene(scene_dir, image_size=E2E_SIZE, n_train=24, n_test=6,
-                           n_gaussians=300, sh_degree=0, seed=seed, device=device)
-    gen_s = time.perf_counter() - t0
-    cfg = config_from_dict(dict(
-        data=str(scene_dir), output=str(out_dir), total_iterations=E2E_ITERS, eval=True,
-        sh_degree=3, renderer="tiled", dataloader_workers=2, **E2E_SCHEDULE,
-        data_format="blender", white_background=True, eval_in_test=True, blender_init_points=4000,
-    ))
-    log(f"[13] e2e: blender scene {E2E_SIZE}x{E2E_SIZE}, 24 train / 6 test frames of 300 SH-0 "
-        f"ground-truth gaussians (the port's oracle) written in {gen_s:.1f} s; schedule "
-        + json.dumps(E2E_SCHEDULE))
+    cfg = load_config(REPO / "configs" / "tandt_db.yaml", **dict(
+        DATA_SCHEDULE, total_iterations=VIEW_STEPS, refine_start=1000, profile_steps=0,
+        eval_every=1000, save_model_iterations=[]), data=str(scene_dir), output=str(out_dir),
+        view_online=True)
+    built, frames, clients = [], [], []
+    construct = integration.construct_training_viewer
+
+    def build(loop, cfg_, output_dir):
+        viewer = construct(loop, cfg_, output_dir, port=0)
+        render, stop = viewer.delay_render._render, viewer.stop
+
+        def timed(cam):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = render(cam)  # ends in the image's copy to the host
+            frames.append(((time.perf_counter() - t0) * 1e3, dict(viewer.base_render_func.stats),
+                           threading.current_thread() is threading.main_thread()))
+            return img
+
+        viewer.delay_render._render = timed
+        viewer.stop = lambda: clients[0].finish(stop)
+        built.append(viewer)
+        clients.append(client_kind(viewer.port))
+        return viewer
+
     random.seed(cfg.random_seed)
     np.random.seed(cfg.random_seed)
-    t0 = time.perf_counter()
-    loop = train(cfg, device=device)
-    train_s = time.perf_counter() - t0
-    random.seed(cfg.random_seed)
-    np.random.seed(cfg.random_seed)
-    scene = Scene.from_config(cfg)
-    bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=device)
-    m = Evaluator(0, get_render_fn(cfg)).evaluate(scene, "eval", loop.model, loop.active_sh_degree, bg)
-    out = {k: m[k] for k in ("psnr", "ssim", "lpips_proxy")}
-    log(f"[13] e2e: {E2E_ITERS} steps in {train_s:.1f} s ({E2E_ITERS / train_s:.1f} it/s), "
-        f"{loop.model.num_alive()} gaussians; eval on the {scene.nbr_data('eval')} test frames: "
-        f"psnr {out['psnr']:.2f} dB, ssim {out['ssim']:.4f}, lpips_proxy {out['lpips_proxy']:.4f} "
-        f"(gate {E2E_MIN_PSNR} dB)")
-    check(out["psnr"] >= E2E_MIN_PSNR, f"e2e psnr {out['psnr']:.2f} below {E2E_MIN_PSNR}")
-    return out
+    try:
+        with swapped(integration, "construct_training_viewer", build):
+            loop, rec = train_recorded(cfg, None, device)
+    finally:  # train() stops the viewer, and with it the client, unless it raised
+        for c in clients:
+            c.close()
+    what = "thread" if client_kind is ThreadClient else "process"
+    check(len(built) == 1 and loop.step == VIEW_STEPS, f"{len(built)} viewers, {loop.step} steps")
+    times = clients[0].times
+    check(not clients[0].errors and times, f"the client ({what}) failed: {clients[0].errors}")
+    check(frames and all(on_loop for _, _, on_loop in frames), "a frame was not rendered on the loop")
+    check(all(st["num_isects"] <= st["isect_cap"] for _, st, _ in frames), "a served frame truncated")
+    steps = rec["steps"]
+    short = [i + 1 for i, st in enumerate(steps)
+             if any(st["launches"][n] < PER_STEP[n] for n in PER_STEP)]
+    check(not short, f"a kernel was launched fewer times than its per-step count at steps {short}")
+    step_ms = float(np.median([steps[i]["ms"] for i in VIEW_TIMED]))
+    it_ms = float(np.median(iteration_ms(steps, VIEW_TIMED)))
+    log(f"[15] card: {card}")
+    log(f"[15] view_online, client in a {what}: {loop.step} steps, {len(times)} /render 1280x720 "
+        f"requests answered from the mailbox (median {float(np.median(times)):.1f} ms), "
+        f"{len(frames)} frames rendered by the loop between steps (median "
+        f"{float(np.median([ms for ms, _, _ in frames])):.1f} ms, "
+        f"{sum(st['rerenders'] for _, st, _ in frames)} rendered again); step median (steps "
+        f"6-23) {step_ms:.2f} ms against phase 13's cached {cached_ms:.2f} ms, loop iteration "
+        f"median {it_ms:.2f} ms")
+    return dict(step_ms=step_ms, it_ms=it_ms, frames=len(frames), requests=len(times))
 
 
 # ------------------------------------------------------------------ main
@@ -1906,11 +2206,17 @@ def run(args) -> dict:
             {"the served frame": bk_calls[0], "phase 8's binning": bk8_calls[0]}, compact_call)
         del bk8_calls
 
+    # ---- phase 14: the batched step at full width, on phase 8's state
+    # (it runs before phase 13, which frees that state)
+    del band_step, grad_fn, post_args
+    torch.cuda.empty_cache()
+    batched = batched_step(cfg8, state0, frames, float(np.median(step_ms)), device, card)
+
     # ---- phase 13: train(cfg) from a data path, at full width from a
     # COLMAP directory, then the convergence check
     from easy_gaussian_splatting_torch.utils.synthetic import generate_colmap_scene
 
-    del state0, band_step, img0, mask0, grad_fn, frames, post_args, bw_calls, seg_calls
+    del state0, img0, mask0, frames, bw_calls, seg_calls
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     scene_dir = RUN_DIR / "colmap_800"
@@ -1920,9 +2226,17 @@ def run(args) -> dict:
     log(f"[13] colmap scene: 24 images 800x800 of 20000 SH-3 ground-truth gaussians (the port's "
         f"tiled renderer), {args.gaussians} sparse points, written in {time.perf_counter() - t0:.1f} s")
     data_run = train_data_path(scene_dir, RUN_DIR / "train13", device, card)
-    e2e = convergence(RUN_DIR / "e2e_data", RUN_DIR / "e2e_run", args.seed, device)
+    e2e = convergence(RUN_DIR / "e2e")
     log(f"[13] card: {card}; data path step median {data_run['step_ms']:.2f} ms cached, "
         f"{data_run['stream_step_ms']:.2f} ms streamed; e2e psnr {e2e['psnr']:.2f} dB")
+
+    # ---- phase 15: the command lines: eval on phase 13 (a)'s run directory,
+    # then training with the viewer on its scene (13 (b) ran the e2e script)
+    torch.cuda.empty_cache()
+    eval_run = eval_cli(RUN_DIR / "train13")
+    for client in (ThreadClient, ProcessClient):
+        view_online(scene_dir, RUN_DIR / f"train15_{client.__name__}", data_run["step_ms"],
+                    device, card, client)
 
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
@@ -1937,7 +2251,9 @@ def run(args) -> dict:
         dict(name=name, route="cuda", source=f"easy_gaussian_splatting_torch/csrc/{src}",
              replaces=f"easy_gaussian_splatting_tpu/ops/pallas/{tpu}",
              launches=train_counts[name], launches_served=served_all[name],
-             launches_data_path=data_run["launches"][name], max_abs_err=err,
+             launches_data_path=data_run["launches"][name],
+             launches_batched=batched["launches"][name],
+             launches_eval_cli=eval_run["launches"][name], max_abs_err=err,
              ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
         for name, (src, tpu, err, ms, plain, bound, by) in measured.items()
     ]
@@ -1950,7 +2266,9 @@ def run(args) -> dict:
             name=name, route="cuda", source=f"easy_gaussian_splatting_torch/csrc/{src}",
             replaces=f"easy_gaussian_splatting_tpu/ops/pallas/{tpu}",
             launches=reduce_counts[name], launches_served=served_all[name],
-            launches_data_path=data_run["launches"][name], max_abs_err=reduce_errs[name],
+            launches_data_path=data_run["launches"][name],
+            launches_batched=batched["launches"][name],
+            launches_eval_cli=eval_run["launches"][name], max_abs_err=reduce_errs[name],
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -14,10 +14,15 @@ needs no rebuild.
 evaluates the eval frames at step 1 and every ``eval_every`` steps and
 records a profiler window when ``profile_steps`` and ``output`` are set.
 
-Waiting for later parts of the port (each raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item): ``mesh_shape`` and ``view_online`` with
-an output directory; the batched multi-camera step is not ported yet
-either.
+``view_online`` with an output directory serves the training viewer: its
+HTTP threads only post the requested camera to a ``DelayRender`` mailbox,
+and the loop renders the newest request once per iteration, between
+steps, so the card's cadence stays the loop's. ``make_batched_train_step``
+is the multi-camera step (B views, one Adam update with the mean
+gradient); ``train()`` keeps batch 1.
+
+Waiting for a later part of the port: ``mesh_shape`` raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -166,15 +171,45 @@ def _loss_and_grads(cfg: Config, render_fn: Callable, model: GaussianModelState,
     )
 
 
-def make_train_step(cfg: Config, render_fn: Callable):
-    static_lrs = {
+def _view_grads(cfg: Config, render_fn: Callable, model: GaussianModelState, stats,
+                w2c, K, image, mask, do_stats: bool, height: int, width: int,
+                sh_degree: int):
+    """One view of a train step: its pre-Adam gradients, its loss dict (with
+    the binned intersection count as ``isects``, the capacity watchdog's
+    channel) and ``stats`` with this view's observations added when
+    ``do_stats`` (inside the refine window)."""
+    camera = CameraView(w2c=w2c, K=K, width=width, height=height)
+    grads, absgrad, ld, radii, num_isects = _loss_and_grads(
+        cfg, render_fn, model, camera, image, mask, sh_degree
+    )
+    if num_isects is not None:
+        ld["isects"] = num_isects.to(torch.float32)
+    if do_stats:
+        stats = update_statistics(stats, radii, absgrad, height, width)
+    return grads, ld, stats
+
+
+def _apply_adam(cfg: Config, model: GaussianModelState, adam: AdamState, grads,
+                stats, lr_means: float, skip_all: bool, skip_opac: bool):
+    """One grouped Adam update; a densify event skips every group, an
+    opacity reset the opacities."""
+    lrs = {
+        "means": lr_means,
         "log_scales": cfg.log_scales_lr,
         "quats": cfg.quats_lr,
         "sh_0": cfg.sh_0_lr,
         "sh_rest": cfg.sh_rest_lr,
         "logit_opacities": cfg.logit_opacities_lr,
     }
+    skips = {
+        name: (skip_all or skip_opac) if name == "logit_opacities" else skip_all
+        for name in ("means",) + LR_GROUPS
+    }
+    params_new, adam_new = adam_update(model.params, grads, adam, lrs, skips)
+    return GaussianModelState(params=params_new, alive=model.alive, stats=stats), adam_new
 
+
+def make_train_step(cfg: Config, render_fn: Callable):
     def train_step(
         model: GaussianModelState,
         adam: AdamState,
@@ -191,23 +226,60 @@ def make_train_step(cfg: Config, render_fn: Callable):
         width: int,
         sh_degree: int,
     ):
-        camera = CameraView(w2c=w2c, K=K, width=width, height=height)
-        grads, absgrad, ld, radii, num_isects = _loss_and_grads(
-            cfg, render_fn, model, camera, image, mask, sh_degree
-        )
-        if num_isects is not None:
-            # capacity-watchdog channel: rides the delayed loss readback
-            ld["isects"] = num_isects.to(torch.float32)
+        grads, ld, stats = _view_grads(cfg, render_fn, model, model.stats, w2c, K, image,
+                                       mask, do_stats, height, width, sh_degree)
+        model_new, adam_new = _apply_adam(cfg, model, adam, grads, stats, lr_means,
+                                          skip_all, skip_opac)
+        return model_new, adam_new, ld
+
+    return train_step
+
+
+def make_batched_train_step(cfg: Config, render_fn: Callable):
+    """The multi-camera train step: B views rendered and differentiated one
+    after another, each adding its observations to the statistics (in view
+    order, under ``do_stats``), then one Adam update with the mean gradient.
+    The gradients are summed from zeros in view order and divided by B, as
+    the JAX step's scan does. The loss dict holds each term's mean over the
+    views and, as ``isects``, the worst view's intersection count.
+
+    This is gradient accumulation, not B steps: ``train()`` keeps batch 1.
+    Camera tensors are stacked on a leading B axis: ``w2cs [B,4,4]``,
+    ``Ks [B,3,3]``, ``images [B,H,W,3]``, ``masks [B,H,W]``."""
+
+    def train_step(
+        model: GaussianModelState,
+        adam: AdamState,
+        w2cs: torch.Tensor,
+        Ks: torch.Tensor,
+        images: torch.Tensor,
+        masks: torch.Tensor,
+        lr_means: float,
+        do_stats: bool,
+        skip_all: bool,
+        skip_opac: bool,
+        *,
+        height: int,
+        width: int,
+        sh_degree: int,
+    ):
+        b = w2cs.shape[0]
         stats = model.stats
-        if do_stats:
-            stats = update_statistics(model.stats, radii, absgrad, height, width)
-        lrs = dict(static_lrs, means=lr_means)
-        skips = {
-            name: (skip_all or skip_opac) if name == "logit_opacities" else skip_all
-            for name in ("means",) + LR_GROUPS
-        }
-        params_new, adam_new = adam_update(model.params, grads, adam, lrs, skips)
-        return GaussianModelState(params=params_new, alive=model.alive, stats=stats), adam_new, ld
+        grads_sum = model.params.map(torch.zeros_like)
+        lds = []
+        for i in range(b):
+            grads, ld, stats = _view_grads(cfg, render_fn, model, stats, w2cs[i], Ks[i],
+                                           images[i], masks[i], do_stats, height, width,
+                                           sh_degree)
+            grads_sum = GaussianParams(**{n: getattr(grads_sum, n) + getattr(grads, n)
+                                          for n in PARAM_NAMES})
+            lds.append(ld)
+        grads = grads_sum.map(lambda g: g / float(b))
+        ld = {k: torch.stack([d[k] for d in lds]) for k in lds[0]}
+        ld = {k: v.max() if k == "isects" else v.mean() for k, v in ld.items()}
+        model_new, adam_new = _apply_adam(cfg, model, adam, grads, stats, lr_means,
+                                          skip_all, skip_opac)
+        return model_new, adam_new, ld
 
     return train_step
 
@@ -351,11 +423,6 @@ def train(
         raise NotImplementedError(
             f"mesh_shape {cfg.mesh_shape!r}: multi-device training is not ported "
             "yet (ROADMAP.md Queue 1 item 7)"
-        )
-    if cfg.view_online and cfg.output is not None:
-        raise NotImplementedError(
-            "view_online: the training viewer is not ported yet (ROADMAP.md "
-            "Queue 1 item 5)"
         )
     if scene is None:
         scene = Scene.from_config(cfg, cfg.output)
@@ -522,6 +589,12 @@ def train(
         logger.info(f"monitor training status: tensorboard --logdir {tb_path}")
         tb_writer = create_tb_writer(str(tb_path))
 
+    viewer = None
+    if cfg.view_online and cfg.output is not None:
+        from ..viewer.integration import construct_training_viewer
+
+        viewer = construct_training_viewer(loop, cfg, Path(cfg.output))
+
     save_iters = set(cfg.save_model_iterations)
     background = _background(cfg, dev)
 
@@ -659,9 +732,14 @@ def train(
                 f"({step / elapsed:.2f} it/s)"
             )
 
+        if viewer is not None:
+            viewer.update_render_image()
+
     _drain_losses(min_pending=0)
     if profiler is not None:  # the run ended inside the window
         profiler.stop()
     if tb_writer is not None:
         tb_writer.close()
+    if viewer is not None:
+        viewer.stop()
     return loop

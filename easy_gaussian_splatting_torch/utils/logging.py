@@ -1,10 +1,13 @@
-"""Console logging; counterpart of
+"""Global state and console logging; counterpart of
 ``easy_gaussian_splatting_tpu/utils/logging.py``."""
 
 from __future__ import annotations
 
 import logging
+import random
 import sys
+
+import numpy as np
 
 _FORMAT = "%(asctime)s | %(levelname)-5s | %(message)s"
 _DATEFMT = "%m%d-%H:%M:%S"
@@ -24,3 +27,18 @@ def configure_logging(level: int = logging.DEBUG) -> None:
     logging.getLogger("PIL").setLevel(logging.INFO)
     logging.getLogger("matplotlib").setLevel(logging.WARNING)
     _configured = True
+
+
+def set_global_state(seed: int, device: str | None = None) -> None:
+    """Seed Python's and numpy's global generators, then configure logging,
+    as the JAX package's ``set_global_state`` does: the scene split, the
+    Blender point cloud and the frame shuffle draw from these generators in
+    the same order in both packages. ``device`` is accepted for config
+    compatibility; the entry points take theirs from ``--device``."""
+    random.seed(seed)
+    np.random.seed(seed)
+    configure_logging()
+
+
+def get_logger(name: str) -> logging.Logger:
+    return logging.getLogger(name)

@@ -1,9 +1,12 @@
-"""Camera state, SE3 interpolation, video export;
+"""Camera state, training-mode mailbox, SE3 interpolation, video export;
 this package's own copy of ``easy_gaussian_splatting_tpu/viewer/camera.py``
 (numpy only).
 
-- ``CameraState``: w2c (OpenCV convention) + intrinsics + size,
-  camera-to-camera distance;
+- ``CameraState``: w2c (OpenCV convention) + intrinsics + size, fov
+  helpers, camera-to-camera distance;
+- ``DelayRender``: viewer threads deposit the latest requested camera and
+  at once get the last frame; the training loop renders the newest
+  deposited camera once per iteration (the loop owns the card's cadence);
 - ``camera_interpolation``: SE3 log/exp interpolation between keyframes
   with frame counts proportional to inter-camera distance;
 - ``RecordManager``: renders the interpolated path and writes a video
@@ -13,9 +16,10 @@ this package's own copy of ``easy_gaussian_splatting_tpu/viewer/camera.py``
 from __future__ import annotations
 
 import logging
+import threading
 from datetime import datetime
 from pathlib import Path
-from typing import Callable, List
+from typing import Callable, List, Tuple
 
 import numpy as np
 
@@ -24,6 +28,10 @@ logger = logging.getLogger(__name__)
 
 def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2.0 * np.tan(fov / 2.0))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * np.arctan(pixels / (2.0 * focal))
 
 
 # ----------------------------------------------------------------- SO3/SE3
@@ -114,6 +122,12 @@ class CameraState:
         # moves; None = full fidelity)
         self.sh_cap = sh_cap
 
+    def fov(self) -> Tuple[float, float]:
+        return (
+            focal2fov(self.K[0, 0], self.width),
+            focal2fov(self.K[1, 1], self.height),
+        )
+
     def distance_to(self, other: "CameraState") -> float:
         a = np.linalg.inv(self.w2c)[:3, 3]
         b = np.linalg.inv(other.w2c)[:3, 3]
@@ -124,6 +138,34 @@ class CameraState:
             self.w2c.copy(), self.K.copy(), self.width, self.height,
             self.sh_cap,
         )
+
+
+class DelayRender:
+    """Single-slot render mailbox for training mode.
+
+    While training, viewer threads never drive the card: each
+    ``get_render_image`` call only posts the requested camera (replacing an
+    older request not yet served, since only the newest view matters) and
+    at once returns the last frame the loop rendered. The loop calls
+    ``update_render_image`` once per iteration, between steps, and renders
+    the posted camera if there is one."""
+
+    def __init__(self, render_func: Callable[[CameraState], np.ndarray]):
+        self._render = render_func
+        self._slot_lock = threading.Lock()
+        self._requested: CameraState | None = None
+        self._last_frame: np.ndarray = np.ones((720, 1280, 3), np.float32)
+
+    def get_render_image(self, camera_state: CameraState) -> np.ndarray:
+        with self._slot_lock:
+            self._requested = camera_state
+        return self._last_frame
+
+    def update_render_image(self) -> None:
+        with self._slot_lock:
+            request, self._requested = self._requested, None
+        if request is not None:
+            self._last_frame = self._render(request)
 
 
 def _geodesic_w2cs(a_w2c: np.ndarray, b_w2c: np.ndarray, count: int):

@@ -1,6 +1,8 @@
 """Viewer <-> model integration; counterpart of
 ``easy_gaussian_splatting_tpu/viewer/integration.py``: load
-``cameras.json`` and build the render closure the viewer serves."""
+``cameras.json``, build the render closure the viewer serves, and build the
+training viewer (the closure over the loop's live state behind a
+``DelayRender`` mailbox)."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .camera import CameraState
+from .server import Viewer
 
 logger = logging.getLogger(__name__)
 
@@ -73,6 +76,7 @@ def make_gs_render_func(get_state, get_sh_degree, background, render_fn,
         rf = get_render_fn(dataclasses.replace(cfg, isect_mult=mult)) if tiled else render_fn
         return rf(state.params, state.alive, camera, sh, background)
 
+    @torch.no_grad()
     def gs_render_func(camera_state: CameraState) -> np.ndarray:
         state = get_state()
         sh = int(get_sh_degree())
@@ -120,3 +124,38 @@ def make_gs_render_func(get_state, get_sh_degree, background, render_fn,
 
     gs_render_func.stats = {}
     return gs_render_func
+
+
+def construct_training_viewer(loop, cfg, output_dir: Path, port: int = 9981) -> Viewer:
+    """The viewer ``train()`` serves with ``view_online``: the render closure
+    over ``loop``'s live model and SH degree, in training mode (requests go
+    to the mailbox the loop renders from). Unlike the JAX package's, the
+    closure sizes the intersection capacity per frame size from the live
+    ``cfg`` and renders a frame again when it overflows, as the offline
+    viewer does; ``port=0`` binds a free port (``Viewer.port``)."""
+    from ..training.trainer import get_render_fn
+
+    camera_states = load_camera_states(output_dir)
+    device = loop.model.alive.device
+    background = torch.full(
+        (3,), 1.0 if cfg.white_background else 0.0, dtype=torch.float32, device=device
+    )
+    base_px = (
+        int(camera_states[0].width) * int(camera_states[0].height)
+        if camera_states else None
+    )
+    render_func = make_gs_render_func(
+        lambda: loop.model,
+        lambda: loop.active_sh_degree,
+        background,
+        get_render_fn(cfg),
+        cfg=cfg,
+        base_pixels=base_px,
+    )
+    return Viewer(
+        render_func,
+        camera_states,
+        port=port,
+        in_training_mode=True,
+        video_output_dir=output_dir / "videos",
+    )

@@ -2,7 +2,10 @@
 ``easy_gaussian_splatting_tpu/viewer/server.py``.
 
 The server only sees a ``render_func(CameraState) -> ndarray`` closure;
-concurrent clients are serialized by a render lock. A stdlib
+concurrent clients are serialized by a render lock. In training mode a
+``/render`` request only posts its camera to a ``DelayRender`` mailbox and
+gets the last frame back; the training loop renders the newest request
+through ``update_render_image``, so it owns the card's cadence. A stdlib
 ThreadingHTTPServer serves a self-contained
 orbit-control page that POSTs camera parameters and receives JPEG frames,
 plus endpoints for jumping to dataset cameras and recording/exporting
@@ -18,11 +21,11 @@ import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 
-from .camera import CameraState, RecordManager, fov2focal
+from .camera import CameraState, DelayRender, RecordManager, fov2focal
 
 logger = logging.getLogger(__name__)
 
@@ -203,6 +206,7 @@ class Viewer:
         target_camera_states: List[CameraState],
         host: str = "localhost",
         port: int = 9981,
+        in_training_mode: bool = False,
         video_output_dir: Path = Path("./output"),
     ) -> None:
         render_lock = threading.Lock()
@@ -214,6 +218,10 @@ class Viewer:
         # the unwrapped closure, for callers that read its per-frame state
         self.base_render_func = render_func
         self.render_func = render_with_lock
+        self.in_training_mode = in_training_mode
+        self.delay_render: Optional[DelayRender] = None
+        if in_training_mode:
+            self.delay_render = DelayRender(self.render_func)
         self.target_camera_states = target_camera_states
         self.record = RecordManager(
             self.render_func, duration=10.0, fps=30.0,
@@ -265,7 +273,7 @@ class Viewer:
                 )
                 if self.path == "/render":
                     cam = _orbit_to_camera(payload)
-                    img = viewer.render_func(cam)
+                    img = viewer._effective_render(cam)
                     if "pad_aspect" in payload:
                         img = pad_to_aspect(
                             np.asarray(img), float(payload["pad_aspect"])
@@ -320,6 +328,19 @@ class Viewer:
         )
         self.thread.start()
         logger.info(f"viewer running at http://{host}:{self.port}")
+
+    def _effective_render(self, camera_state: CameraState) -> np.ndarray:
+        """What a ``/render`` request gets: in training mode the mailbox's
+        last frame (the request is posted for the loop to render), else a
+        render under the lock."""
+        if self.delay_render is not None:
+            return self.delay_render.get_render_image(camera_state)
+        return self.render_func(camera_state)
+
+    def update_render_image(self) -> None:
+        """Called by the training loop once per iteration (training mode)."""
+        if self.delay_render is not None:
+            self.delay_render.update_render_image()
 
     def stop(self) -> None:
         self.server.shutdown()

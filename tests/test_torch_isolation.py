@@ -39,6 +39,7 @@ TRAINING_MODULES = (
     "scene.image_io", "scene.types", "scene.colmap", "scene.blender",
     "scene.device_cache", "native", "utils.synthetic", "utils.profiling",
     "evaluation.metrics", "evaluation.lpips", "evaluation.evaluator",
+    "train", "eval", "validate_e2e", "viewer.integration", "utils.logging",
 )
 # the one string of the port that names the JAX package: the checkpoint
 # format tag both packages write and read
@@ -127,6 +128,21 @@ def test_entry_points_refuse_cpu_unless_asked(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(config_from_dict(dict(data_device_cache=False)), scene=object())
+    # the command lines: each refuses before it writes anything
+    from easy_gaussian_splatting_torch import eval as teval
+    from easy_gaussian_splatting_torch import train as ttrain
+    from easy_gaussian_splatting_torch import validate_e2e
+
+    (tmp_path / "config.yaml").write_text("{}")
+    for main, argv in (
+        (ttrain.main, ["-c", str(REPO / "configs" / "nerf_synthetic.yaml"), "-d", str(tmp_path),
+                       "-o", str(tmp_path / "out")]),
+        (teval.main, ["-p", str(tmp_path)]),
+        (validate_e2e.main, ["--iters", "2", "--out", str(tmp_path / "e2e")]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    assert not (tmp_path / "out").exists() and not (tmp_path / "e2e").exists()
     assert egt.resolve_device("cpu") == torch.device("cpu")
 
 

@@ -433,3 +433,89 @@ def test_eval_latency_chain_replays_a_cuda_graph(cuda, rng):
         timer.stop()
     d = timer.durations_ms()
     assert len(d) == 3 and all(np.isfinite(x) and x > 0 for x in d)
+
+
+def _model_arrays(rng, n):
+    return dict(
+        means=rng.uniform([-1.0, -1.0, 3.0], [1.0, 1.0, 5.0], size=(n, 3)),
+        log_scales=rng.uniform(-3.5, -2.5, size=(n, 3)),
+        quats=rng.normal(size=(n, 4)),
+        sh_0=rng.normal(0.0, 0.8, size=(n, 1, 3)),
+        sh_rest=rng.normal(0.0, 0.2, size=(n, 15, 3)),
+        logit_opacities=rng.normal(0.0, 1.5, size=n),
+    )
+
+
+def test_eval_counting_render_skips_a_captured_chain(cuda, rng):
+    """The eval's ``CountingRender`` keeps the count of each eager render and
+    none of the renders captured into the latency chain's CUDA graph."""
+    from types import SimpleNamespace
+
+    from easy_gaussian_splatting_torch.eval import CountingRender
+    from easy_gaussian_splatting_torch.evaluation.evaluator import Evaluator
+    from easy_gaussian_splatting_torch.models import gaussians as tg
+    from easy_gaussian_splatting_torch.training.config import config_from_dict
+    from easy_gaussian_splatting_torch.training.trainer import get_render_fn
+
+    n = 512
+    model = SimpleNamespace(params=tg.params_from_numpy(_model_arrays(rng, n), cuda),
+                            alive=torch.ones(n, dtype=torch.bool, device=cuda))
+    K = torch.tensor([[60.0, 0, 32.0], [0, 60.0, 24.0], [0, 0, 1]], device=cuda)
+    data = dict(w2c=torch.eye(4, device=cuda), K=K, width=64, height=48)
+    counting = CountingRender(get_render_fn(config_from_dict(dict(renderer="tiled", tile_size=16))))
+    ev = Evaluator(0, counting)
+    bg = torch.zeros(3, device=cuda)
+    ev._render(model, data, 3, bg)
+    ms = ev._chain_ms(model, data, 3, bg)
+    ev._render(model, data, 3, bg)
+    assert np.isfinite(ms) and len(counting.counts) == 2
+    assert int(counting.counts[0]) == int(counting.counts[1]) > 0
+
+
+def test_batched_step_equals_sequential_on_the_card(cuda, rng):
+    """``make_batched_train_step`` against B ``make_grad_fn`` calls, the
+    gradients summed in view order and divided by B, the statistics view by
+    view and one ``adam_update``, all on the card: equal bit for bit (no
+    kernel of the step adds with atomics), and so are two runs."""
+    from easy_gaussian_splatting_torch.models import gaussians as tg
+    from easy_gaussian_splatting_torch.models.density import update_statistics
+    from easy_gaussian_splatting_torch.models.optimizer import adam_update, init_adam_state
+    from easy_gaussian_splatting_torch.training import trainer as ttrainer
+    from easy_gaussian_splatting_torch.training.config import config_from_dict
+
+    n, b, h, w = 4096, 3, 96, 128
+    params = tg.params_from_numpy(_model_arrays(rng, n), cuda)
+    state = tg.GaussianModelState(params=params, alive=torch.ones(n, dtype=torch.bool, device=cuda),
+                                  stats=tg.zero_stats(n, cuda))
+    adam = init_adam_state(params)
+    w2cs = torch.eye(4, device=cuda).repeat(b, 1, 1)
+    w2cs[:, 0, 3] = torch.tensor([0.0, 0.15, -0.2], device=cuda)
+    Ks = torch.tensor([[110.0, 0, w / 2], [0, 110.0, h / 2], [0, 0, 1]], device=cuda).repeat(b, 1, 1)
+    images = torch.as_tensor(rng.uniform(size=(b, h, w, 3)), dtype=torch.float32, device=cuda)
+    masks = torch.zeros((b, h, w), device=cuda)
+    cfg = config_from_dict(dict(renderer="tiled", tile_size=16, isect_mult=8.0))
+    kw = dict(height=h, width=w, sh_degree=3)
+    render_fn = ttrainer.get_render_fn(cfg)
+    grad_fn = ttrainer.make_grad_fn(cfg, render_fn)
+    total, stats = params.map(torch.zeros_like), state.stats
+    for i in range(b):
+        g, a, _, radii = grad_fn(state, w2cs[i], Ks[i], images[i], masks[i], **kw)
+        stats = update_statistics(stats, radii, a, h, w)
+        total = tg.GaussianParams(**{k: getattr(total, k) + getattr(g, k) for k in tg.PARAM_NAMES})
+    lrs = dict(means=1e-3, log_scales=cfg.log_scales_lr, quats=cfg.quats_lr, sh_0=cfg.sh_0_lr,
+               sh_rest=cfg.sh_rest_lr, logit_opacities=cfg.logit_opacities_lr)
+    want, want_adam = adam_update(params, total.map(lambda x: x / float(b)), adam, lrs,
+                                  {k: False for k in tg.PARAM_NAMES})
+    step = ttrainer.make_batched_train_step(cfg, render_fn)
+    before = (bk.launches, tr.launches, tr.backward_launches, seg.launches)
+    runs = [step(state, adam, w2cs, Ks, images, masks, 1e-3, True, False, False, **kw)
+            for _ in range(2)]
+    after = (bk.launches, tr.launches, tr.backward_launches, seg.launches)
+    assert [y - x for x, y in zip(before, after)] == [2 * b] * 4
+    for got, got_adam, ld in runs:
+        assert int(ld["isects"]) <= trt.isect_capacity(n, cfg.isect_mult)
+        for k in tg.PARAM_NAMES:
+            assert torch.equal(getattr(got.params, k), getattr(want, k)), k
+            assert torch.equal(getattr(got_adam.mu, k), getattr(want_adam.mu, k)), k
+        for k in ("grad_norm_accum", "collecting_counts", "max_radii"):
+            assert torch.equal(getattr(got.stats, k), getattr(stats, k)), k

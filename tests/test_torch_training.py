@@ -449,22 +449,33 @@ def test_train_loop_matches_jax(rng, monkeypatch):
     np.testing.assert_array_equal(_np(tloop.model.alive), _np(jloop.model.alive))
 
 
-def test_train_refuses_what_is_not_ported(rng, tmp_path):
-    """``mesh_shape`` and the training viewer (with an output directory)
-    raise naming their ROADMAP.md items; ``view_online`` and
-    ``profile_steps`` without an output directory are ignored, as the JAX
-    trainer ignores them."""
+def test_train_refuses_what_is_not_ported(rng, tmp_path, monkeypatch):
+    """``mesh_shape`` raises naming its ROADMAP.md item; ``view_online`` with
+    an output directory builds the training viewer and trains every step;
+    ``view_online`` and ``profile_steps`` without an output directory are
+    ignored, as the JAX trainer ignores them."""
+    from easy_gaussian_splatting_torch.viewer import integration as tint
+
     arrays, alive, w2c, K, image, mask = _scene_arrays(rng)
     frame = dict(K=K, height=H, width=W, w2c=w2c, image=image, mask=mask)
     scene = _OneCameraScene(arrays["means"][:N], np.zeros((N, 3), np.uint8), frame, 3)
     base = dict(CFG, total_iterations=3)
-    for extra, what in ((dict(mesh_shape="tiles:4"), "item 7"),
-                        (dict(view_online=True, output=str(tmp_path)), "item 5")):
-        with pytest.raises(NotImplementedError, match=what):
-            ttrainer.train(tconfig.config_from_dict(dict(base, **extra)), scene=scene, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ttrainer.train(tconfig.config_from_dict(dict(base, mesh_shape="tiles:4")), scene=scene,
+                       device="cpu")
+    viewers = []
+    construct = tint.construct_training_viewer
+    monkeypatch.setattr(tint, "construct_training_viewer", lambda loop, cfg, out: viewers.append(
+        construct(loop, cfg, out, port=0)) or viewers[-1])
+    (tmp_path / "cameras.json").write_text("[]")  # a Scene with an output directory writes it
+    loop = ttrainer.train(tconfig.config_from_dict(dict(base, view_online=True,
+                                                        output=str(tmp_path))),
+                          scene=scene, device="cpu")
+    assert loop.step == 3 and len(viewers) == 1 and viewers[0].in_training_mode
     for extra in (dict(view_online=True), dict(profile_steps=5)):
         loop = ttrainer.train(tconfig.config_from_dict(dict(base, **extra)), scene=scene, device="cpu")
         assert loop.step == 3
+    assert len(viewers) == 1
 
 
 # ------------------------------------------------- train() from a data path
