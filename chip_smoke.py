@@ -114,15 +114,39 @@ and then through the multi-camera step and the command lines:
    requests every 16 ms, first from a thread of this process, then from a
    process of its own (as a browser): every request answered from the
    mailbox, every frame rendered by the loop on its own thread and not
-   truncated, the step median beside phase 13's cached median.
+   truncated, the step median beside phase 13's cached median;
+
+and then through the multi-device path (``parallel/``), with ranks spawned
+from this process (a rank that fails fails the run):
+
+16. (a) phase 8's state and first frame, rendered with 16-pixel tiles (so
+   that both 400-row stripes start on a tile edge of the full frame; see
+   ``MESH_TILE``), on two gloo ranks sharing the card (NCCL refuses two
+   ranks on one device): ``tiles:2`` uniform and adaptive and ``gauss:2``'s
+   pre-Adam gradients, absgrad and radii against the single-device render
+   of the same windows and, for the uniform stripes, against the full
+   frame's single-device step, within ``tests/test_parallel.py``'s bands
+   (the adaptive stripes' distance from the full frame's step printed, and
+   the same at the config's 32-pixel tiles), each rank's kernel launches
+   and binning work (the partition's balance), then one ``gauss:2`` and one
+   ``tiles:2`` train step against the single step;
+   ``tiles:1`` on a world of one NCCL rank, bit for bit equal to the single
+   step; (b) ``train(cfg)`` under ``tiles:2``, then ``gauss:2``, on two gloo
+   ranks from phase 13 (a)'s scene (21 steps, the Scene's least; one
+   densify event): both finish, the ranks' parameters end bit for bit
+   equal, the capacity is the growth arithmetic's, and rank 0's checkpoint
+   renders a finite frame in the single-device viewer path. Peak memory and
+   the collectives each backend ran, per rank. Two processes time-share one
+   card there: their step times are no scaling number.
 
 Then one JSON line of the seven kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
 for the first four and that of its reduction in phase 11 for the other
 three, ``launches_served`` the viewer's build and requests of phase 5,
 ``launches_data_path`` the cached ``train(cfg)`` run of phase 13 (a),
-``launches_batched`` phase 14's 10 timed batched steps and
-``launches_eval_cli`` phase 15's eval.
+``launches_batched`` phase 14's 10 timed batched steps,
+``launches_eval_cli`` phase 15's eval and ``launches_mesh`` rank 0's
+sharded calls and ``train()`` runs of phase 16.
 ``ms``, ``plain_ms``, ``bound_ms`` and ``max_abs_err`` come from the served
 800x800 frame for binkeys and tiled_forward, and from the first train
 step for the others; ``library_ms`` is null where no one PyTorch call
@@ -1873,6 +1897,567 @@ def view_online(scene_dir: Path, out_dir: Path, cached_ms: float, device, card: 
     return dict(step_ms=step_ms, it_ms=it_ms, frames=len(frames), requests=len(times))
 
 
+# ----------------------------------------------------------------- phase 16
+# the mesh on the card: MESH_WORLD ranks of one world share cuda:0 under gloo
+# (NCCL refuses two ranks on one device, so it gets a world of one). Two
+# processes time-share one card here: their times are no scaling number.
+MESH_WORLD = 2
+MESH_TIMEOUT_S = 600.0  # a rank's collectives fail after this, and its spawn too
+# the gradient bands of tests/test_parallel.py (relative to the reference's
+# largest |g|): tiled uniform stripes 5e-4, adaptive 5e-3
+MESH_GRAD_RTOL = {"uniform": 5e-4, "adaptive": 5e-3}
+# (a) renders with 16-pixel tiles, so that the two 400-row stripes start on
+# a tile edge of the full frame (400 = 25 x 16; not so at the config's 32).
+# The tiled renderer's output depends on where the tile grid falls: binning
+# caps a Gaussian's support at 3 sigma per tile, and the kernels composite
+# every pixel of a binned tile down to alpha 1/255, so a grid offset from
+# the full frame's composites the 3-3.3 sigma ring of every Gaussian with
+# opacity above 0.35 in other pixels. The adaptive stripes start on
+# arbitrary rows: they are held to the single-device render of the same
+# windows, and their distance from the full frame's step is printed.
+MESH_TILE = 16
+LOSS_RTOL_16 = {"uniform": 1e-6, "adaptive": 5e-5}  # tests/test_parallel.py's
+MESH_GRAD_MODES = (("tiles:2 uniform", "tiles:2", "uniform"),
+                   ("tiles:2 adaptive", "tiles:2", "adaptive"),
+                   ("gauss:2 uniform", "gauss:2", "uniform"))
+# phase 13 (a)'s scene and configs/tandt_db.yaml with a schedule cut to 21
+# steps (the Scene's least: one a train frame): an eval at step 1 (rank 0),
+# one densify event at step 15 and a checkpoint at the end
+MESH_SCHEDULE = dict(
+    total_iterations=21, sh_degree_interval=0, refine_start=0, refine_every=15,
+    reset_opacities_every=1000, eval_every=1000, eval_render_num=1, profile_steps=0,
+    save_model_iterations=[21], save_optimizer_state=False, log_every=1,
+)
+MESH_TIMED = range(1, 14)  # steps 2-14: after the eval, before the event
+MESH_KERNELS = ("binkeys", "tiled_forward", "tiled_backward", "segsum_band")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(job: str, world: int, backend: str, kwargs: dict) -> list:
+    """Run ``job`` on ``world`` ranks spawned from this process (one world
+    over ``tcp://localhost``, ``backend``); every rank's result, or a
+    failure with the traceback of the rank that raised. Every process is
+    joined or killed before this returns."""
+    import multiprocessing as mp
+    import pickle
+
+    out = RUN_DIR / "mesh"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.glob(f"{job}_rank*"):
+        f.unlink()
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=mesh_rank, args=(job, r, world, port, backend, kwargs, str(out)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT_S + 120
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    errors = [f.read_text() for f in sorted(out.glob(f"{job}_rank*.err"))]
+    check(not late and not errors and all(p.exitcode == 0 for p in procs),
+          f"[16] {job}: ranks {late} still running, exit codes "
+          f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    return [pickle.loads((out / f"{job}_rank{r}.pkl").read_bytes()) for r in range(world)]
+
+
+def mesh_rank(job, rank, world, port, backend, kwargs, out):
+    """A spawned rank: joins the world, runs ``job`` and writes its result
+    (or its traceback) under ``out``."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from easy_gaussian_splatting_torch.parallel import collectives as col
+    from easy_gaussian_splatting_torch.parallel import distributed
+
+    try:
+        distributed.initialize(f"tcp://localhost:{port}", world, rank, device=DEVICE,
+                               backend=backend, timeout_s=MESH_TIMEOUT_S)
+        res = MESH_JOBS[job](rank, **kwargs)
+        res["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        res["collectives"] = {f"{name} ({be})": n for (name, be), n in sorted(col.CALLS.items())}
+        dist.barrier()
+        dist.destroy_process_group()
+        Path(out, f"{job}_rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    except BaseException:
+        Path(out, f"{job}_rank{rank}.err").write_text(f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+
+
+def _mesh_inputs(state_path):
+    """Phase 8's state, first frame and tuned binning from ``state_path``."""
+    import dataclasses
+
+    import torch
+
+    from easy_gaussian_splatting_torch.models.gaussians import (
+        GaussianModelState,
+        GaussianParams,
+        zero_stats,
+    )
+    from easy_gaussian_splatting_torch.training.config import load_config
+
+    blob = torch.load(state_path, map_location=DEVICE)
+    cfg = dataclasses.replace(load_config(REPO / "configs" / "nerf_synthetic.yaml", **TRAIN_SCHEDULE),
+                              **blob["binning"])
+    alive = blob["alive"]
+    state = GaussianModelState(params=GaussianParams(**blob["params"]), alive=alive,
+                               stats=zero_stats(alive.shape[0], alive.device))
+    return cfg, state, blob["frame"]
+
+
+def windowed_grads(cfg, state, w2c, K, image, mask, partition: str, n: int):
+    """The single-device reference of an ``n``-stripe step: each rank's
+    window (``partition``'s) rendered in this process, the image
+    reassembled, one loss and one backward: (grads, absgrad, loss dict,
+    radii)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES, GaussianParams
+    from easy_gaussian_splatting_torch.models.render import CameraView
+    from easy_gaussian_splatting_torch.parallel import shard
+    from easy_gaussian_splatting_torch.training import trainer as tt
+
+    render_fn = tt.get_render_fn(cfg)
+    h, w = image.shape[:2]
+    bg = tt._background(cfg, image.device)
+    leaves, absd = tt.grad_leaves(state.params, state.capacity)
+    if partition == "adaptive":
+        b = shard.adaptive_row_bounds(state.params, state.alive, w2c, K, h, n)
+        cams = [CameraView(w2c, K, w, h, full_height=h, y_offset=b[i].to(torch.float32),
+                           y_limit=(b[i + 1] - b[i]).to(torch.float32)) for i in range(n)]
+    else:
+        cams = [CameraView(w2c, K, w, h // n, full_height=h,
+                           y_offset=torch.full((), float(i * h // n), device=image.device))
+                for i in range(n)]
+    outs = [render_fn(leaves, state.alive, cam, 3, bg, absd) for cam in cams]
+    full = torch.cat([o.image for o in outs])
+    if partition == "adaptive":
+        full = shard.reassemble_adaptive(full, b, n, h)
+    ld = tt.cfg_loss(cfg, full, image, mask, leaves, state.alive)
+    g = tt.param_grads(ld["total"], leaves, absd)
+    radii = torch.stack([o.radii for o in outs]).amax(0)
+    return (GaussianParams(**dict(zip(PARAM_NAMES, g[:-1]))), g[-1],
+            {k: v.detach() for k, v in ld.items()}, radii)
+
+
+def _grad_errors(got, want) -> dict:
+    """Each gradient's largest |difference| relative to the single step's
+    largest |g|, absgrad's likewise, whether the radii are equal, the
+    loss's relative difference."""
+    from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES
+
+    (g, a, ld, r), (wg, wa, wld, wr) = got, want
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+
+    errs = {n: rel(getattr(g, n), getattr(wg, n)) for n in PARAM_NAMES}
+    errs["absgrad"] = rel(a, wa)
+    return dict(errs=errs, radii_equal=bool((r == wr).all()),
+                loss_rel=abs(float(ld["total"]) / float(wld["total"]) - 1.0))
+
+
+def mesh_grads_job(rank, state_path):
+    """Phase 16 (a) on a rank of a gloo world: each mode's sharded pre-Adam
+    gradients (its kernel launches, the time of the call and every rank's
+    binning work from the striped counter), then one ``gauss:2`` and one
+    ``tiles:2`` train step; rank 0 holds each against the single-device
+    step."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES
+    from easy_gaussian_splatting_torch.models.optimizer import init_adam_state
+    from easy_gaussian_splatting_torch.parallel import gauss_shard, shard
+    from easy_gaussian_splatting_torch.parallel.mesh import GAUSS_AXIS, mesh_from_shape
+    from easy_gaussian_splatting_torch.training import trainer as tt
+
+    cfg, state, (w2c, K, image, mask) = _mesh_inputs(state_path)
+    h, w = image.shape[:2]
+    kw = dict(height=h, width=w)
+    ref = tt.make_grad_fn(cfg, tt.get_render_fn(cfg))(state, w2c, K, image, mask, sh_degree=3,
+                                                     **kw) if rank == 0 else None
+    res, launches = {"modes": {}}, dict.fromkeys(counts(), 0)
+    if rank == 0:
+        # the config's own tiles: at 800 rows the second window's tile grid
+        # is offset by 16 rows from the full frame's (see MESH_TILE)
+        cfg_t = dataclasses.replace(cfg, **torch.load(state_path)["config_binning"])
+        full_t = tt.make_grad_fn(cfg_t, tt.get_render_fn(cfg_t))(
+            state, w2c, K, image, mask, sh_degree=3, **kw)
+        res["config_tiles"] = dict(tile=cfg_t.tile_size, rows=h // MESH_WORLD, **_grad_errors(
+            windowed_grads(cfg_t, state, w2c, K, image, mask, "uniform", MESH_WORLD), full_t))
+        del full_t
+    for name, shape, partition in MESH_GRAD_MODES:
+        mcfg = dataclasses.replace(cfg, stripe_partition=partition)
+        mesh = mesh_from_shape(shape, DEVICE)
+        gauss = GAUSS_AXIS in mesh.axis_names
+        rf = tt.get_render_fn(mcfg)
+        make = gauss_shard.make_gauss_sharded_grad_fn if gauss else shard.make_sharded_grad_fn
+        model = gauss_shard.shard_state(state, mesh) if gauss else state
+        fn = make(mcfg, mesh, rf, h, w)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(model, w2c, K, image, mask, sh_degree=3)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        own = counts()
+        for k in launches:
+            launches[k] += own[k]
+        work = shard.make_striped_isect_counter(
+            mesh, mcfg.tile_size, mcfg.max_tiles, mcfg.max_tiles, ov_frac=mcfg.ov_frac,
+            small_budget=mcfg.small_budget, reduce="none", partition=partition,
+        )(state.params, state.alive, w2c, K, **kw)
+        mode = dict(ms=ms, launches=own, isects=[int(x) for x in work[:, 0].tolist()],
+                    step_isects=int(got[2]["isects"]))
+        if rank == 0:
+            mode["vs_full"] = _grad_errors(got, ref)
+            mode["vs_windows"] = _grad_errors(got, windowed_grads(
+                mcfg, state, w2c, K, image, mask, partition, mesh.size))
+        res["modes"][name] = mode
+        del got, model
+    lr = cfg.means_lr_init
+    flags = (lr, True, False, False)
+    single = None
+    if rank == 0:
+        single = tt.make_train_step(cfg, tt.get_render_fn(cfg))(
+            state, init_adam_state(state.params), w2c, K, image, mask, *flags, sh_degree=3, **kw)[0]
+    res["steps"] = {}
+    for shape in ("gauss:2", "tiles:2"):
+        mcfg = dataclasses.replace(cfg, stripe_partition="uniform")
+        mesh = mesh_from_shape(shape, DEVICE)
+        gauss = GAUSS_AXIS in mesh.axis_names
+        rf = tt.get_render_fn(mcfg)
+        model, adam = state, init_adam_state(state.params)
+        if gauss:
+            model, adam = gauss_shard.shard_state(model, mesh), gauss_shard.shard_state(adam, mesh)
+            step = gauss_shard.make_gauss_sharded_train_step(mcfg, mesh, rf, h, w)
+        else:
+            step = shard.make_sharded_train_step(mcfg, mesh, rf, h, w)
+        zero_counts()
+        model = step(model, adam, w2c, K, image, mask, *flags, sh_degree=3)[0]
+        torch.cuda.synchronize()
+        for k, v in counts().items():
+            launches[k] += v
+        if gauss:
+            model = gauss_shard.gather_state(model, mesh)
+        out = dict(digest=hashlib.sha256(b"".join(
+            getattr(model.params, n).cpu().numpy().tobytes() for n in PARAM_NAMES)).hexdigest())
+        if rank == 0:
+            out["rel_l2"] = {n: float((getattr(model.params, n) - getattr(single.params, n)).norm()
+                                      / getattr(single.params, n).norm().clamp(min=1e-30))
+                             for n in PARAM_NAMES}
+        res["steps"][shape] = out
+        del model, adam
+    res["launches"] = launches
+    return res
+
+
+def mesh_nccl_job(rank, state_path):
+    """Phase 16 (a) on a world of one NCCL rank: ``tiles:1``'s gradients
+    against the single step's, bit for bit (the stripe is the whole image:
+    y_offset 0, y_limit H)."""
+    import dataclasses
+
+    import torch
+
+    from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES
+    from easy_gaussian_splatting_torch.parallel import shard
+    from easy_gaussian_splatting_torch.parallel.mesh import mesh_from_shape
+    from easy_gaussian_splatting_torch.training import trainer as tt
+
+    cfg, state, (w2c, K, image, mask) = _mesh_inputs(state_path)
+    h, w = image.shape[:2]
+    want = tt.make_grad_fn(cfg, tt.get_render_fn(cfg))(state, w2c, K, image, mask, height=h,
+                                                      width=w, sh_degree=3)
+    mcfg = dataclasses.replace(cfg, stripe_partition="uniform")
+    zero_counts()
+    got = shard.make_sharded_grad_fn(mcfg, mesh_from_shape("tiles:1", DEVICE),
+                                     tt.get_render_fn(mcfg), h, w)(
+        state, w2c, K, image, mask, sh_degree=3)
+    torch.cuda.synchronize()
+    launches = {k: counts()[k] for k in MESH_KERNELS}
+    (g, a, ld, r), (wg, wa, wld, wr) = got, want
+    equal = {n: torch.equal(getattr(g, n), getattr(wg, n)) for n in PARAM_NAMES}
+    equal.update(absgrad=torch.equal(a, wa), radii=torch.equal(r, wr),
+                 loss=bool(ld["total"] == wld["total"]))
+    return dict(equal=equal, launches=launches, **_grad_errors(got, want))
+
+
+def mesh_train_job(rank, scene_dir, out_dir, shape, seed):
+    """Phase 16 (b) on a rank: ``train(cfg)`` under ``shape`` on phase 13
+    (a)'s scene, each step timed (host clock between synchronizes) with its
+    launches and intersections, the densify events and their capacities
+    recorded; a digest of the final parameters."""
+    import hashlib
+    import random
+
+    import torch
+
+    from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES
+    from easy_gaussian_splatting_torch.parallel import gauss_shard, shard
+    from easy_gaussian_splatting_torch.training import trainer as tt
+    from easy_gaussian_splatting_torch.training.config import load_config
+
+    cfg = load_config(REPO / "configs" / "tandt_db.yaml", **MESH_SCHEDULE, data=scene_dir,
+                      output=out_dir, mesh_shape=shape)
+    steps, events = [], []
+
+    def timed(make):
+        def made(*a, **k):
+            step = make(*a, **k)
+
+            def run(*a, **k):
+                before = counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*a, **k)
+                torch.cuda.synchronize()
+                after = counts()
+                steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                  launches={n: after[n] - before[n] for n in MESH_KERNELS},
+                                  isects=int(out[2]["isects"]), loss=float(out[2]["total"])))
+                return out
+
+            return run
+
+        return made
+
+    def densify(run):
+        def wrapped(loop, *a, **k):
+            cap0 = loop.model.capacity
+            info = run(loop, *a, **k)
+            events.append(dict(cap0=cap0, cap1=loop.model.capacity, info=info))
+            return info
+
+        return wrapped
+
+    overflows = []
+
+    def sharded_densify(make):
+        def made(*a, **k):
+            step = make(*a, **k)
+
+            def run(*a, **k):
+                out = step(*a, **k)
+                overflows.append(bool(out[3]))
+                return out
+
+            return run
+
+        return made
+
+    random.seed(seed)
+    np.random.seed(seed)
+    zero_counts()
+    with swapped(shard, "make_sharded_train_step", timed(shard.make_sharded_train_step)), \
+            swapped(gauss_shard, "make_gauss_sharded_train_step",
+                    timed(gauss_shard.make_gauss_sharded_train_step)), \
+            swapped(gauss_shard, "make_sharded_densify_step",
+                    sharded_densify(gauss_shard.make_sharded_densify_step)), \
+            swapped(tt, "run_densify_with_growth", densify(tt.run_densify_with_growth)), \
+            swapped(tt, "run_sharded_densify_with_growth",
+                    densify(tt.run_sharded_densify_with_growth)):
+        loop = tt.train(cfg, device=DEVICE)
+    total = counts()
+    digest = hashlib.sha256(b"".join(getattr(loop.model.params, n).cpu().numpy().tobytes()
+                                     for n in PARAM_NAMES)
+                            + loop.model.alive.cpu().numpy().tobytes()).hexdigest()
+    return dict(steps=steps, events=events, overflows=overflows, digest=digest,
+                capacity=loop.model.capacity, alive=loop.model.num_alive(),
+                max_capacity=cfg.max_capacity, launches=total)
+
+
+MESH_JOBS = {"grads": mesh_grads_job, "nccl": mesh_nccl_job, "train": mesh_train_job}
+
+
+def mesh_gradients(cfg8, state0, frame0, card: str) -> dict:
+    """Phase 16 (a): phase 8's state and first frame, its binning tuned
+    again for ``MESH_TILE``-pixel tiles, on ``MESH_WORLD`` gloo ranks sharing
+    the card (each ``MESH_GRAD_MODES`` mode, then a ``gauss:2`` and a
+    ``tiles:2`` step), then on one NCCL rank (``tiles:1``)."""
+    import dataclasses
+
+    import torch
+
+    from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES
+    from easy_gaussian_splatting_torch.training.trainer import tune_inference_cfg
+
+    cfg = tune_inference_cfg(dataclasses.replace(cfg8, tile_size=MESH_TILE), state0,
+                             frame0["w2c"], frame0["K"], 800, 800, margin=1.2)
+    path = RUN_DIR / "mesh_state.pt"
+    torch.save(dict(params={n: getattr(state0.params, n) for n in PARAM_NAMES},
+                    alive=state0.alive,
+                    frame=[torch.as_tensor(frame0[k], device=DEVICE)
+                           for k in ("w2c", "K", "image", "mask")],
+                    binning=dict(tile_size=cfg.tile_size, isect_mult=cfg.isect_mult,
+                                 small_budget=cfg.small_budget, ov_frac=cfg.ov_frac),
+                    config_binning=dict(tile_size=cfg8.tile_size, isect_mult=cfg8.isect_mult,
+                                        small_budget=cfg8.small_budget, ov_frac=cfg8.ov_frac)),
+               path)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("grads", MESH_WORLD, "gloo", dict(state_path=str(path)))
+    log(f"[16] card: {card}; {MESH_WORLD} gloo ranks time-share cuda:0 (the card's machine has one "
+        f"GPU): no time below is a scaling number; (a) took {time.perf_counter() - t0:.1f} s; "
+        f"tile {cfg.tile_size}, isect_mult {cfg.isect_mult}, small_budget {cfg.small_budget}, "
+        f"ov_frac {cfg.ov_frac}")
+    for name, _, partition in MESH_GRAD_MODES:
+        m0 = ranks[0]["modes"][name]
+        isects = m0["isects"]
+        for r, res in enumerate(ranks):
+            m = res["modes"][name]
+            log(f"[16] {name} rank {r}: launches " + ", ".join(
+                f"{k} {m['launches'][k]}" for k in MESH_KERNELS)
+                + f"; its intersections {isects[r]}; the call {m['ms']:.1f} ms")
+        log(f"[16] {name}: intersections per rank {isects}, max/mean "
+            f"{max(isects) / max(np.mean(isects), 1):.3f} (the partition's load balance); the "
+            f"step's isects (the fullest rank) {m0['step_isects']}")
+        rtol = MESH_GRAD_RTOL[partition]
+        for what, e in (("the single-device step", m0["vs_full"]),
+                        ("the single-device render of the same windows", m0["vs_windows"])):
+            worst = max(e["errs"].values())
+            log(f"[16] {name} vs {what}: largest |diff| / max |g| "
+                + ", ".join(f"{k} {v:.2e}" for k, v in e["errs"].items())
+                + f" (band {rtol:g}: {'held' if worst <= rtol else 'missed'}); radii equal "
+                f"{e['radii_equal']}; loss off by {e['loss_rel']:.2e}")
+        # the windows' reference isolates the mesh from where the tile grid
+        # falls: held everywhere; the full frame's step where the stripes
+        # start on its tile edges (uniform; see MESH_TILE)
+        held = [m0["vs_windows"]] + ([m0["vs_full"]] if partition == "uniform" else [])
+        for e in held:
+            worst = max(e["errs"].values())
+            check(worst <= rtol and e["radii_equal"] and e["loss_rel"] <= LOSS_RTOL_16[partition],
+                  f"[16] {name}: gradients off by {worst:.2e} (band {rtol:g}), radii equal "
+                  f"{e['radii_equal']}, loss off by {e['loss_rel']:.2e}")
+        for res in ranks:
+            check(all(res["modes"][name]["launches"][k] >= 1 for k in MESH_KERNELS),
+                  f"[16] {name}: a rank launched a main-path kernel no time")
+    e = ranks[0]["config_tiles"]
+    log(f"[16] at the config's {e['tile']}-pixel tiles, {MESH_WORLD} windows of {e['rows']} rows rendered on one "
+        f"device vs the full frame's step: largest |diff| / max |g| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in e["errs"].items())
+        + f"; loss off by {e['loss_rel']:.2e} (the tile grid, not the mesh: why (a) renders with "
+        f"{MESH_TILE}-pixel tiles)")
+    for shape, st in ranks[0]["steps"].items():
+        worst = max(st["rel_l2"].values())
+        same = all(res["steps"][shape]["digest"] == st["digest"] for res in ranks)
+        log(f"[16] one {shape} train step vs the single step: parameters' relative L2 "
+            + ", ".join(f"{k} {v:.2e}" for k, v in st["rel_l2"].items())
+            + f" (limit {STEP_GRAD_RTOL:g}); ranks' parameters equal bit for bit: {same}")
+        check(worst <= STEP_GRAD_RTOL and same, f"[16] {shape} step off by {worst:.2e}")
+    for r, res in enumerate(ranks):
+        log(f"[16] (a) rank {r}: peak device memory {res['peak_mib']:.0f} MiB; collectives "
+            + ", ".join(f"{k} {v}" for k, v in res["collectives"].items()))
+    nccl = spawn_ranks("nccl", 1, "nccl", dict(state_path=str(path)))[0]
+    differ = [k for k, v in nccl["equal"].items() if not v]
+    log(f"[16] tiles:1 on one NCCL rank vs the single step: bit for bit equal {not differ}"
+        + (f" (differ: {', '.join(differ)})" if differ else "") + "; launches "
+        + ", ".join(f"{k} {nccl['launches'][k]}" for k in MESH_KERNELS)
+        + f"; peak {nccl['peak_mib']:.0f} MiB; collectives "
+        + ", ".join(f"{k} {v}" for k, v in nccl["collectives"].items()))
+    check(not differ, f"[16] tiles:1 on NCCL is not bit for bit: {differ}")
+    path.unlink()
+    return ranks[0]["launches"]
+
+
+def mesh_training(scene_dir: Path, cached_ms: float, card: str) -> dict:
+    """Phase 16 (b): ``train(cfg)`` under ``tiles:2``, then ``gauss:2``, on
+    ``MESH_WORLD`` gloo ranks sharing the card, from phase 13 (a)'s scene;
+    rank 0's checkpoint then loads in the single-device viewer path."""
+    import torch
+
+    from easy_gaussian_splatting_torch.launch_viewer import load_run
+    from easy_gaussian_splatting_torch.training.config import dump_config, load_config
+    from easy_gaussian_splatting_torch.training.trainer import get_render_fn
+    from easy_gaussian_splatting_torch.viewer.integration import make_gs_render_func
+
+    log("[16] (b) config: configs/tandt_db.yaml with " + json.dumps(MESH_SCHEDULE)
+        + f", data {scene_dir.name}; {MESH_WORLD} gloo ranks on cuda:0")
+    launches = dict.fromkeys(counts(), 0)
+    for shape in ("tiles:2", "gauss:2"):
+        out_dir = RUN_DIR / f"train16_{shape.replace(':', '')}"
+        cfg = load_config(REPO / "configs" / "tandt_db.yaml", **MESH_SCHEDULE, data=str(scene_dir),
+                          output=str(out_dir), mesh_shape=shape)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        dump_config(cfg, out_dir / "config.yaml")  # as the train CLI's rank 0 writes it
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("train", MESH_WORLD, "gloo", dict(
+            scene_dir=str(scene_dir), out_dir=str(out_dir), shape=shape, seed=cfg.random_seed))
+        took = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            steps = res["steps"]
+            check(len(steps) == MESH_SCHEDULE["total_iterations"], f"[16] {shape} rank {r}: "
+                  f"{len(steps)} steps")
+            short = [i + 1 for i, st in enumerate(steps)
+                     if any(st["launches"][k] < 1 for k in MESH_KERNELS)]
+            check(not short, f"[16] {shape} rank {r}: a kernel did not launch at steps {short}")
+            check(all(math.isfinite(st["loss"]) for st in steps), f"[16] {shape}: a loss is not finite")
+            med = float(np.median([steps[i]["ms"] for i in MESH_TIMED]))
+            log(f"[16] {shape} rank {r}: step median (steps 2-14, host clock between synchronizes) "
+                f"{med:.2f} ms beside phase 13 (a)'s single-device {cached_ms:.2f} ms (two "
+                f"processes time-share one card: not a scaling number); launches "
+                + ", ".join(f"{k} {res['launches'][k]}" for k in MESH_KERNELS)
+                + f"; intersections per step (the fullest rank's) "
+                + " ".join(str(st["isects"]) for st in steps)
+                + f"; peak {res['peak_mib']:.0f} MiB; collectives "
+                + ", ".join(f"{k} {v}" for k, v in res["collectives"].items()))
+        r0 = ranks[0]
+        check(len(r0["events"]) == 1, f"[16] {shape}: {len(r0['events'])} densify events, want 1")
+        ev = r0["events"][0]
+        losses = [st["loss"] for st in r0["steps"]]
+        log(f"[16] {shape}: {len(losses)} steps in {took:.1f} s (spawn and scene load included); loss "
+            + " ".join(f"{x:.4f}" for x in losses) + f"; densify at step 15: {ev['info']}; "
+            f"capacity {r0['capacity']}, {r0['alive']} gaussians at the end")
+        same = all(res["digest"] == r0["digest"] for res in ranks)
+        log(f"[16] {shape}: the ranks' final parameters equal bit for bit: {same}")
+        check(same, f"[16] {shape}: the ranks ended with different parameters")
+        if shape.startswith("gauss"):
+            n = 2  # the gauss axis
+            cap0 = ev["cap0"] * n
+            grown = min(cap0 * 2, r0["max_capacity"])
+            grown -= grown % n
+            want = grown if (ev["info"]["nbr_gaussians"] > 0.85 * cap0 or any(r0["overflows"])) \
+                else cap0
+            log(f"[16] {shape}: capacity {cap0} before the event, {r0['capacity']} after, the "
+                f"growth arithmetic says {want} ({ev['info']['nbr_gaussians']} alive, overflow "
+                f"{any(r0['overflows'])})")
+            check(r0["capacity"] == want, f"[16] {shape}: capacity {r0['capacity']}, want {want}")
+        for k in launches:
+            launches[k] += r0["launches"][k]
+        # rank 0's run directory in the single-device viewer path
+        vcfg, state, sh, cams = load_run(out_dir, device=DEVICE)
+        bg = torch.full((3,), 1.0 if vcfg.white_background else 0.0, device=DEVICE)
+        img = make_gs_render_func(lambda: state, lambda: sh, bg, get_render_fn(vcfg), cfg=vcfg,
+                                  base_pixels=int(cams[0].width) * int(cams[0].height))(cams[0])
+        check(np.isfinite(img).all() and img.shape[:2] == (int(cams[0].height), int(cams[0].width)),
+              f"[16] {shape}: rank 0's checkpoint rendered a bad frame")
+        log(f"[16] {shape}: rank 0's checkpoint ({state.num_alive()} gaussians) in the viewer path: "
+            f"{img.shape[1]}x{img.shape[0]} frame, finite, mean {float(np.mean(img)):.4f}")
+        del state
+        torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------------------ main
 def http(port: int, path: str, payload=None):
     url = f"http://localhost:{port}{path}"
@@ -2212,6 +2797,10 @@ def run(args) -> dict:
     torch.cuda.empty_cache()
     batched = batched_step(cfg8, state0, frames, float(np.median(step_ms)), device, card)
 
+    # ---- phase 16 (a): the mesh's gradients and steps on phase 8's state
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_gradients(cfg8, state0, frames[0], card)
+
     # ---- phase 13: train(cfg) from a data path, at full width from a
     # COLMAP directory, then the convergence check
     from easy_gaussian_splatting_torch.utils.synthetic import generate_colmap_scene
@@ -2238,6 +2827,13 @@ def run(args) -> dict:
         view_online(scene_dir, RUN_DIR / f"train15_{client.__name__}", data_run["step_ms"],
                     device, card, client)
 
+    # ---- phase 16 (b): train(cfg) under a mesh on phase 13 (a)'s scene
+    torch.cuda.empty_cache()
+    for k, v in mesh_training(scene_dir, data_run["step_ms"], card).items():
+        mesh_launches[k] += v
+    check(all(mesh_launches[k] > 0 for k in MESH_KERNELS),
+          f"[16] a main-path kernel never launched under the mesh: {mesh_launches}")
+
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
         "tiled_forward": ("tile_forward.cu", "tile_raster.py:355", fw_err, fw_ms, fw_plain,
@@ -2253,7 +2849,8 @@ def run(args) -> dict:
              launches=train_counts[name], launches_served=served_all[name],
              launches_data_path=data_run["launches"][name],
              launches_batched=batched["launches"][name],
-             launches_eval_cli=eval_run["launches"][name], max_abs_err=err,
+             launches_eval_cli=eval_run["launches"][name],
+             launches_mesh=mesh_launches[name], max_abs_err=err,
              ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
         for name, (src, tpu, err, ms, plain, bound, by) in measured.items()
     ]
@@ -2268,7 +2865,8 @@ def run(args) -> dict:
             launches=reduce_counts[name], launches_served=served_all[name],
             launches_data_path=data_run["launches"][name],
             launches_batched=batched["launches"][name],
-            launches_eval_cli=eval_run["launches"][name], max_abs_err=reduce_errs[name],
+            launches_eval_cli=eval_run["launches"][name],
+            launches_mesh=mesh_launches[name], max_abs_err=reduce_errs[name],
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

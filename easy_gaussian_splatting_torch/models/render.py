@@ -21,12 +21,24 @@ from .gaussians import GaussianParams
 
 class CameraView(NamedTuple):
     """One camera: world->camera transform and intrinsics, as f32 tensors
-    on the render's device, and the image size."""
+    on the render's device, and the image size.
+
+    ``full_height``/``y_offset`` select a horizontal stripe of a taller
+    viewport (the multi-device path, ``parallel/shard.py``): projection (the
+    EWA Jacobian's frustum clamp and the visibility cull) runs in the full
+    image's geometry, so every rank sees the same conics and radii, then the
+    screen means shift up by ``y_offset`` rows into the stripe and only
+    ``height`` rows are rasterized. ``y_limit`` (0-d, rows) bins only rows
+    ``[0, y_limit)`` of that window (the adaptive partition); the oracle
+    ignores it, as the JAX oracle does."""
 
     w2c: torch.Tensor  # [4, 4]
     K: torch.Tensor  # [3, 3]
     width: int
-    height: int
+    height: int  # rasterized rows (the stripe's when sharded)
+    full_height: int | None = None  # projection viewport rows (None: height)
+    y_offset: torch.Tensor | None = None  # 0-d f32: the stripe's first row
+    y_limit: torch.Tensor | None = None  # 0-d f32: rows that receive content
 
 
 class RenderOutput(NamedTuple):
@@ -47,13 +59,18 @@ def render(
     # is absgrad (None: forward only, as the viewer renders)
     chunk: int = 256,
     rasterizer=None,  # (m2d, conics, colors, opac, depths, bg, absdummy,
-    # H, W, radii=...) -> (img, alpha[, num_isects]); default: the oracle
+    # H, W, radii=...[, y_limit=...]) -> (img, alpha[, num_isects]); default:
+    # the oracle
 ) -> RenderOutput:
     scales = torch.exp(params.log_scales)
     opacities = torch.sigmoid(params.logit_opacities) * alive.to(torch.float32)
 
-    intr = CameraIntrinsics.from_K(camera.K, camera.width, camera.height)
+    proj_h = camera.height if camera.full_height is None else camera.full_height
+    intr = CameraIntrinsics.from_K(camera.K, camera.width, proj_h)
     proj = project_gaussians(params.means, params.quats, scales, camera.w2c, intr)
+    if camera.y_offset is not None:  # stripe-local rows (see CameraView)
+        shift = torch.stack([torch.zeros_like(camera.y_offset), camera.y_offset])
+        proj = proj._replace(means2d=proj.means2d - shift[None, :])
 
     r_cw = camera.w2c[:3, :3]
     t_cw = camera.w2c[:3, 3]
@@ -71,9 +88,10 @@ def render(
     opac_eff = opacities * (proj.radii > 0.0).to(torch.float32)
     if rasterizer is None:
         rasterizer = functools.partial(rasterize, chunk=chunk)
+    kw = {} if camera.y_limit is None else {"y_limit": camera.y_limit}
     out = rasterizer(
         proj.means2d, proj.conics, colors, opac_eff, proj.depths, background,
-        absgrad_dummy, camera.height, camera.width, radii=proj.radii,
+        absgrad_dummy, camera.height, camera.width, radii=proj.radii, **kw,
     )
     img, alpha = out[0], out[1]
     num_isects = out[2] if len(out) > 2 else None

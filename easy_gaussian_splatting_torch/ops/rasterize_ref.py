@@ -181,10 +181,12 @@ def rasterize(
     chunk: int = 128,
     radii: torch.Tensor | None = None,  # unified rasterizer signature; the
     # oracle composites every eligible Gaussian so radii are not needed
+    y_limit: torch.Tensor | None = None,  # unified signature: the oracle
+    # renders every row of the window
 ):
     """Depth-sort then composite; blends the background (``C += T_final *
     bg``). Returns (image [H,W,3], alpha [H,W])."""
-    del radii
+    del radii, y_limit
     inf = torch.full_like(depths, float("inf"))
     order = torch.argsort(torch.where(opacities > 0.0, depths, inf), stable=True)
     img, final_t = rasterize_sorted(

@@ -44,13 +44,17 @@ values and defaults are the JAX package's (``EGS_TPU_BWD_REDUCE``,
     package's XLA grid), with the same exact test in the same term order.
 
 Gaussians covering more than ``max_tiles_w * max_tiles_h`` tiles are
-clamped to a window centered on their tile, as in the JAX package. Stripe
-rendering comes with the multi-device part of the port.
+clamped to a window centered on their tile, as in the JAX package. A 0-d
+``y_limit`` (rows, default the window's height) bins only rows ``[0,
+y_limit)`` of the window: the multi-device path renders an image stripe
+through a window whose rows past its limit receive nothing
+(``parallel/shard.py``'s adaptive partition).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 import os
 from typing import NamedTuple
 
@@ -265,8 +269,10 @@ def bin_gaussians(
     opacities: torch.Tensor,  # [C]
     ov_capacity: int | None = None,  # population-B slots (None: C//8)
     small_budget: int = SMALL_BUDGET,  # population-A cells per gaussian
-    height: int | None = None,  # image rows: gaussians whose support starts
-    # at or below this row are not binned (the tile grid's padding rows)
+    y_limit: torch.Tensor | float | None = None,  # rows: gaussians whose
+    # support starts at or below this row are not binned, and windows end
+    # above it (a 0-d tensor, which may differ per call; the tile grid's
+    # padding rows and a stripe's rows past its limit)
 ) -> Binning:
     """Binning through the ``binkeys`` kernel, or through the ``[C, M]``
     grid when ``BINNING_IMPL`` is ``xla`` or ``BWD_REDUCE`` is ``dense``
@@ -287,8 +293,13 @@ def bin_gaussians(
     valid = (extents[:, 0] > 0.0) & (extents[:, 1] > 0.0)
     rx, ry = extents[:, 0], extents[:, 1]
     mx, my = means2d[:, 0], means2d[:, 1]
-    if height is not None:
-        valid = valid & ((my - ry) < height)
+    lim_row = None
+    if isinstance(y_limit, torch.Tensor):
+        valid = valid & ((my - ry) < y_limit)
+        lim_row = torch.clamp(torch.ceil(y_limit / ts).to(torch.int32), min=1)
+    elif y_limit is not None:  # a number: no tensor made, no copy to the card
+        valid = valid & ((my - ry) < float(y_limit))
+        lim_row = max(math.ceil(float(y_limit) / ts), 1)
     inf = torch.full_like(depths, float("inf"))
     order = torch.argsort(torch.where(valid, depths, inf), stable=True)
     rank = torch.empty_like(order)
@@ -299,6 +310,10 @@ def bin_gaussians(
 
     tx0, tx1 = tile_of(mx - rx, tx_n - 1), tile_of(mx + rx, tx_n - 1)
     ty0, ty1 = tile_of(my - ry, ty_n - 1), tile_of(my + ry, ty_n - 1)
+    if lim_row is not None:
+        # a valid gaussian starts above the limit; ty1 >= ty0 keeps the
+        # window arithmetic sane for the rest, which is masked out
+        ty1 = torch.maximum(torch.clamp(ty1, max=lim_row - 1), ty0)
 
     # flexible window: any w x h <= m; an oversized rect shrinks its larger
     # side, re-centered on the Gaussian's tile
@@ -483,15 +498,17 @@ def _ov_capacity(c: int, ov_frac: float) -> int:
 def _prepare(
     means2d, conics, colors, opacities, radii, depths,
     height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
-    ov_frac: float = 0.125, small_budget: int = SMALL_BUDGET,
+    ov_frac: float = 0.125, small_budget: int = SMALL_BUDGET, y_limit=None,
 ):
     geom = image_geometry(height, width, tile_size)
     extents = binning_extents(conics, opacities, radii)
+    # no limit given: the whole window, which excludes only gaussians
+    # entirely below it (the exact tile test drops those anyway)
     binning = bin_gaussians(
         means2d, extents, depths, geom, max_tiles_w, max_tiles_h,
         conics=conics, opacities=opacities,
         ov_capacity=_ov_capacity(means2d.shape[0], ov_frac),
-        small_budget=small_budget, height=height,
+        small_budget=small_budget, y_limit=height if y_limit is None else y_limit,
     )
     # the sort domain can be smaller than a large requested cap; the dense
     # side channel stays at full length (the backward's inverse permutation
@@ -510,12 +527,12 @@ def _prepare(
 def _tiled_impl(
     means2d, conics, colors, opacities, radii, depths,
     height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
-    ov_frac=0.125, small_budget=SMALL_BUDGET,
+    ov_frac=0.125, small_budget=SMALL_BUDGET, y_limit=None,
 ):
     geom, binning, feats = _prepare(
         means2d, conics, colors, opacities, radii, depths,
         height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
-        ov_frac=ov_frac, small_budget=small_budget,
+        ov_frac=ov_frac, small_budget=small_budget, y_limit=y_limit,
     )
     basis = tile_pixel_basis(geom, means2d.device)
     rgb_t, tfin_t, last_t = tile_raster.tiled_forward(feats, binning.tile_offsets, basis)
@@ -627,19 +644,19 @@ def _reduce_dense(
 class _RasterizeTiledCore(torch.autograd.Function):
     """The tiled rasterizer with its hand-written gradient. Inputs
     means2d, conics, colors, opacities and absgrad_dummy get gradients;
-    radii and depths (binning only) get none."""
+    radii, depths and y_limit (binning only) get none."""
 
     @staticmethod
     def forward(
         ctx, means2d, conics, colors, opacities, radii, depths, absgrad_dummy,
-        height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
+        y_limit, height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
         ov_frac, small_budget,
     ):
         reduce = _bwd_reduce()
         img, final_t, (binning, feats, tfin_t, last_t) = _tiled_impl(
             means2d, conics, colors, opacities, radii, depths,
             height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
-            ov_frac, small_budget,
+            ov_frac, small_budget, y_limit,
         )
         ctx.save_for_backward(
             feats, tfin_t, last_t, binning.tile_offsets, binning.isect_flat,
@@ -677,7 +694,7 @@ class _RasterizeTiledCore(torch.autograd.Function):
         v_abs = dsum[:, 9:11] if ctx.needs_input_grad[6] else None
         return (
             dsum[:, 0:2], dsum[:, 2:5], dsum[:, 6:9], dsum[:, 5], None, None, v_abs,
-            None, None, None, None, None, None, None, None,
+            None, None, None, None, None, None, None, None, None,
         )
 
 
@@ -691,6 +708,8 @@ def rasterize_tiled(
     return_isects: bool = False,
     ov_frac: float = 0.125,
     small_budget: int = SMALL_BUDGET,
+    y_limit: torch.Tensor | None = None,  # 0-d f32 rows: bin only rows
+    # [0, y_limit) of the window (default its height)
 ):
     """Tiled rasterization with the unified rasterizer signature (see
     ``models/render.py``). Returns (image [H,W,3], alpha [H,W]), plus the
@@ -707,7 +726,7 @@ def rasterize_tiled(
     radii = torch.where(opacities > 0.0, radii, torch.zeros_like(radii))
     img, final_t, num_isects = _RasterizeTiledCore.apply(
         means2d, conics, colors, opacities, radii, depths, absgrad_dummy,
-        height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
+        y_limit, height, width, tile_size, max_tiles_w, max_tiles_h, isect_cap,
         ov_frac, small_budget,
     )
     img = img + final_t[..., None] * background[None, None, :]
@@ -739,7 +758,7 @@ def make_isect_counter(
             proj.means2d, extents, proj.depths, geom, max_tiles_w, max_tiles_h,
             conics=proj.conics, opacities=opac,
             ov_capacity=_ov_capacity(params.means.shape[0], ov_frac),
-            small_budget=small_budget, height=height,
+            small_budget=small_budget, y_limit=float(height),
         )
         return torch.cat(
             [torch.stack([binning.num_isects, binning.num_overflow]), binning.n_gt]

@@ -10,9 +10,13 @@ and, with ``--view_online``, the training viewer), then runs this package's
 ``eval`` on each saved iteration. ``--profile N`` records a profiler trace
 of N steps (``cfg.profile_steps``).
 
-One device only: the JAX CLI's multi-host join (``maybe_initialize_from_env``)
-waits for the port of the multi-device modules (``ROADMAP.md`` Queue 1
-item 7).
+Several ranks (a config with ``mesh_shape``): each rank runs this command
+and joins the world first, before anything touches the device
+(``parallel.maybe_initialize_from_env``: ``torchrun`` with
+``EGS_TORCH_DISTRIBUTED=1``, or ``EGS_TORCH_COORDINATOR``,
+``EGS_TORCH_NUM_PROCESSES`` and ``EGS_TORCH_PROCESS_ID`` per rank). Every
+rank trains in rank 0's run directory; rank 0 alone writes it and
+evaluates.
 """
 
 from __future__ import annotations
@@ -40,7 +44,10 @@ def parse_cfg(args) -> Config:
 
 def main(argv=None) -> Path:
     """Train and evaluate; returns the run directory."""
+    import torch.distributed as dist
+
     from .eval import eval as run_eval
+    from .parallel import maybe_initialize_from_env
     from .training.trainer import train
     from .utils.logging import set_global_state
 
@@ -55,9 +62,17 @@ def main(argv=None) -> Path:
                         help="trace this many training steps with torch.profiler")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
+    # several ranks: join the world before anything touches the device (a
+    # no-op unless the EGS_TORCH_* variables ask for it)
+    maybe_initialize_from_env(args.device)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     device = resolve_device(args.device)
 
     cfg = parse_cfg(args)
+    if dist.is_initialized():  # rank 0's run directory (its clock named it)
+        out = [cfg.output]
+        dist.broadcast_object_list(out, src=0)
+        cfg.output = out[0]
     cfg.profile_steps = args.profile
     set_global_state(cfg.random_seed, cfg.device)
 
@@ -65,12 +80,14 @@ def main(argv=None) -> Path:
         logger.warning("total_iterations is not in save_model_iterations, appending")
         cfg.save_model_iterations.append(cfg.total_iterations)
 
-    logger.info(f"output dir: {cfg.output}")
-    Path(cfg.output).mkdir(parents=True)
-    dump_config(cfg, Path(cfg.output) / "config.yaml")
-
-    logger.info("----------------------- train -----------------------")
+    if rank0:
+        logger.info(f"output dir: {cfg.output}")
+        Path(cfg.output).mkdir(parents=True)
+        dump_config(cfg, Path(cfg.output) / "config.yaml")
+        logger.info("----------------------- train -----------------------")
     train(cfg, resume_from=args.resume, device=device)
+    if not rank0:
+        return Path(cfg.output)
     logger.info("training finished")
     logger.info("--------------------- evaluation ---------------------")
     for iteration in cfg.save_model_iterations:

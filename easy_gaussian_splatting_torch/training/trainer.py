@@ -21,8 +21,16 @@ steps, so the card's cadence stays the loop's. ``make_batched_train_step``
 is the multi-camera step (B views, one Adam update with the mean
 gradient); ``train()`` keeps batch 1.
 
-Waiting for a later part of the port: ``mesh_shape`` raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+``mesh_shape`` (``"tiles:N"``, ``"gauss:N"``, ``"gauss:G,tiles:T"``) trains on
+a mesh of the initialised ``torch.distributed`` world, one rank a device
+(``parallel/``): every rank runs ``train()`` with the same seed and config;
+frames are padded to a multiple of the stripe count with the pad masked;
+every decision taken on the host from a device value reads a value reduced
+over the world, so the ranks stay in step. Rank 0 alone writes checkpoints,
+TensorBoard, ``cameras.json`` and logs, evaluates (full single-device frames
+of the gathered model, the other ranks waiting) and serves the training
+viewer. Under ``gauss`` the loop holds this rank's shard and returns the
+gathered state.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..models.density import (
@@ -142,26 +151,43 @@ def _background(cfg: Config, device) -> torch.Tensor:
     return torch.full((3,), 1.0 if cfg.white_background else 0.0, dtype=torch.float32, device=device)
 
 
+def grad_leaves(params: GaussianParams, capacity: int):
+    """Detached parameter leaves and a [C, 2] zero absgrad dummy, all
+    requiring gradients."""
+    leaves = params.map(lambda x: x.detach().requires_grad_(True))
+    absd = torch.zeros((capacity, 2), dtype=torch.float32, device=params.means.device,
+                       requires_grad=True)
+    return leaves, absd
+
+
+def cfg_loss(cfg: Config, rendered, image, mask, leaves: GaussianParams, alive):
+    """The config's loss dict of a rendered image against its target."""
+    return loss_dict(
+        rendered, image, mask, cfg.lambda_ssim,
+        log_scales=leaves.log_scales, alive=alive,
+        use_scale_regularization=cfg.use_scale_regularization,
+        max_scale_ratio=cfg.max_scale_ratio, lambda_scale=cfg.lambda_scale,
+    )
+
+
+def param_grads(total: torch.Tensor, leaves: GaussianParams, absd: torch.Tensor):
+    """d total / d (each parameter in PARAM_NAMES order, then absgrad_dummy);
+    a parameter the render does not reach (sh_rest at degree 0) gets zeros,
+    as jax.grad gives."""
+    inputs = [getattr(leaves, n) for n in PARAM_NAMES] + [absd]
+    grads = torch.autograd.grad(total, inputs, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+
+
 def _loss_and_grads(cfg: Config, render_fn: Callable, model: GaussianModelState,
                     camera: CameraView, image, mask, sh_degree: int):
     """One camera's loss dict and pre-Adam gradients: (grads, absgrad [C, 2],
     loss dict, radii [C], num_isects or None), all detached."""
-    leaves = model.params.map(lambda x: x.detach().requires_grad_(True))
-    absd = torch.zeros((model.capacity, 2), dtype=torch.float32,
-                       device=model.alive.device, requires_grad=True)
+    leaves, absd = grad_leaves(model.params, model.capacity)
     out = render_fn(leaves, model.alive, camera, sh_degree,
                     _background(cfg, model.alive.device), absd)
-    ld = loss_dict(
-        out.image, image, mask, cfg.lambda_ssim,
-        log_scales=leaves.log_scales, alive=model.alive,
-        use_scale_regularization=cfg.use_scale_regularization,
-        max_scale_ratio=cfg.max_scale_ratio, lambda_scale=cfg.lambda_scale,
-    )
-    inputs = [getattr(leaves, n) for n in PARAM_NAMES] + [absd]
-    # a parameter the render does not reach (sh_rest at degree 0) gets
-    # zeros, as jax.grad gives
-    grads = torch.autograd.grad(ld["total"], inputs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+    ld = cfg_loss(cfg, out.image, image, mask, leaves, model.alive)
+    grads = param_grads(ld["total"], leaves, absd)
     return (
         GaussianParams(**dict(zip(PARAM_NAMES, grads[:-1]))),
         grads[-1],
@@ -372,6 +398,50 @@ def run_densify_with_growth(
         loop.adam = grow_adam_state(loop.adam, new_cap - cap)
 
 
+def run_sharded_densify_with_growth(
+    loop: TrainLoopState,
+    sharded_densify_step,
+    generator: torch.Generator,
+    cfg: Config,
+    mesh,
+) -> Dict[str, int]:
+    """A densify event over Gaussian-sharded state (``loop`` holds this
+    rank's shard). On any shard's free-slot overflow, grow the capacity per
+    shard (``grow_state_sharded``, aligned to the shard count) and retry on
+    the pre-event state with the same noise. Capacity compaction is skipped
+    (it would need a global permutation), as in the JAX trainer. The info
+    and overflow are summed over the shards, so every rank decides alike."""
+    from ..parallel.gauss_shard import grow_state_sharded
+    from ..parallel.mesh import GAUSS_AXIS
+
+    n_shards = mesh.axis_size(GAUSS_AXIS)
+
+    def aligned(cap: int) -> int:
+        return cap - cap % n_shards
+
+    # one draw of the shared generator an event: the shards' seeds
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+    while True:
+        new_model, new_adam, info, overflow = sharded_densify_step(loop.model, loop.adam, seed)
+        cap = loop.model.capacity * n_shards
+        new_cap = aligned(min(cap * 2, cfg.max_capacity))
+        if not bool(overflow):
+            n = int(info["nbr_gaussians"])
+            if n > 0.85 * cap and new_cap > cap:
+                logger.info(f"growing capacity {cap} -> {new_cap} ({n} gaussians alive, "
+                         f"{n_shards} shards)")
+                loop.model, loop.adam = grow_state_sharded(new_model, new_adam, new_cap, mesh)
+            else:
+                loop.model, loop.adam = new_model, new_adam
+            return {k: int(v) for k, v in info.items()}
+        if new_cap <= cap:
+            logger.warning(f"densify overflow at max capacity {cap}; dropping excess")
+            loop.model, loop.adam = new_model, new_adam
+            return {k: int(v) for k, v in info.items()}
+        logger.info(f"densify overflow: growing capacity {cap} -> {new_cap} ({n_shards} shards)")
+        loop.model, loop.adam = grow_state_sharded(loop.model, loop.adam, new_cap, mesh)
+
+
 class _PendingScalars:
     """A step's loss dict copied to the host without waiting: the copy goes
     into pinned memory behind an event, and is read once the event has
@@ -405,7 +475,8 @@ def train(
     cfg: Config, scene=None, resume_from: Optional[str] = None,
     device: str | torch.device = "cuda",
 ) -> TrainLoopState:
-    """Full single-device training run. ``scene`` is a ``Scene`` or any
+    """Full training run, on one device or, with ``cfg.mesh_shape``, as one
+    rank of a mesh (see the module docstring). ``scene`` is a ``Scene`` or any
     object with its interface (``pc.xyzs``, ``pc.rgbs``, ``pc.nbr_points``,
     ``nbr_data(split)``, ``get_data(split, i)``; for the frame cache also
     ``frames``, ``train_indexes`` and ``eval_indexes``); None builds the
@@ -419,13 +490,31 @@ def train(
     from ..utils.tb import create_tb_writer, tb_report
 
     dev = resolve_device(device)
+    # optional mesh: "tiles:N" (stripes sharded, parameters replicated),
+    # "gauss:N" (ZeRO: parameters, moments and statistics sharded, stripes
+    # too), "gauss:G,tiles:T" (storage over G, stripes over G*T)
+    mesh = None
+    gauss = False
+    rank0 = True
     if cfg.mesh_shape:
-        raise NotImplementedError(
-            f"mesh_shape {cfg.mesh_shape!r}: multi-device training is not ported "
-            "yet (ROADMAP.md Queue 1 item 7)"
-        )
+        from ..parallel import gauss_shard, shard
+        from ..parallel.mesh import GAUSS_AXIS, mesh_from_shape
+
+        mesh = mesh_from_shape(cfg.mesh_shape, dev)
+        gauss = GAUSS_AXIS in mesh.axis_names
+        rank0 = dist.get_rank() == 0
+        if not rank0:  # rank 0 alone logs (a rank's process is its own)
+            logging.getLogger(__name__.split(".")[0]).setLevel(logging.ERROR)
+        logger.info(f"training on a {mesh.size}-device mesh "
+                 f"{dict(zip(mesh.axis_names, mesh.shape))}, {mesh.backend}")
+    n_gauss = mesh.axis_size(GAUSS_AXIS) if gauss else 1
+
+    def full_state(state):
+        """The whole model or Adam state (under ``gauss`` every rank must call)."""
+        return gauss_shard.gather_state(state, mesh) if gauss else state
+
     if scene is None:
-        scene = Scene.from_config(cfg, cfg.output)
+        scene = Scene.from_config(cfg, cfg.output if rank0 else None)
 
     if resume_from is not None:
         model, sh_deg, start_step, adam = load_checkpoint(Path(resume_from), dev)
@@ -450,6 +539,12 @@ def train(
             adam=init_adam_state(model.params),
             active_sh_degree=0 if cfg.sh_degree_interval != 0 else cfg.sh_degree,
         )
+    if gauss:
+        loop.model = gauss_shard.shard_state(loop.model, mesh)
+        loop.adam = gauss_shard.shard_state(loop.adam, mesh)
+
+    def capacity_now() -> int:
+        return loop.model.capacity * n_gauss
 
     render_fn = get_render_fn(cfg)
     train_step = make_train_step(cfg, render_fn)
@@ -468,6 +563,14 @@ def train(
         )
 
         def _make_counter():
+            if mesh is not None:
+                # each rank bins its stripe; the counts are the fullest
+                # rank's, the same on every rank
+                return shard.make_striped_isect_counter(
+                    mesh, cfg.tile_size, cfg.max_tiles, cfg.max_tiles,
+                    ov_frac=cfg.ov_frac, small_budget=cfg.small_budget,
+                    interleave=cfg.stripe_interleave, partition=cfg.stripe_partition,
+                )
             return make_isect_counter(
                 cfg.tile_size, cfg.max_tiles, cfg.max_tiles,
                 ov_frac=cfg.ov_frac, small_budget=cfg.small_budget,
@@ -477,9 +580,9 @@ def train(
 
     def count_isects(data):
         w2c, K = _frame_tensors(data, dev, ("w2c", "K"))
+        model = full_state(loop.model)
         vals = isect_counter(
-            loop.model.params, loop.model.alive, w2c, K,
-            height=data["height"], width=data["width"],
+            model.params, model.alive, w2c, K, height=data["height"], width=data["width"],
         )
         return vals.cpu().numpy()
 
@@ -493,7 +596,7 @@ def train(
             return
         vals = count_isects(data)
         n, n_ov = int(vals[0]), int(vals[1])
-        cap = loop.model.capacity
+        cap = capacity_now()
         max_mult = max_isect_cap(cfg.isect_hbm_budget_mb) / max(cap, 1)
         want = math.floor(min(max(0.25, n * 1.2 / cap), max_mult) * 1e3) / 1e3
         m_cells = cfg.max_tiles * cfg.max_tiles
@@ -525,7 +628,7 @@ def train(
         channel) and once per densify event, right after the population
         jump (the JAX package counts just before the event)."""
         nonlocal render_fn, train_step, overflow_steps
-        cap = cfg.isect_mult * loop.model.capacity
+        cap = cfg.isect_mult * capacity_now()
         if n > cap:
             overflow_steps += 1
             logger.warning(
@@ -535,7 +638,7 @@ def train(
             if tb_writer is not None:
                 tb_report(tb_writer, at_step, {"train/overflow_steps": overflow_steps})
         if n > 0.9 * cap:
-            max_mult = max_isect_cap(cfg.isect_hbm_budget_mb) / max(loop.model.capacity, 1)
+            max_mult = max_isect_cap(cfg.isect_hbm_budget_mb) / max(capacity_now(), 1)
             want_mult = math.floor(min(cfg.isect_mult * 2, max_mult) * 1e3) / 1e3
             if want_mult <= cfg.isect_mult:
                 logger.warning(
@@ -558,15 +661,15 @@ def train(
         n, n_ov = int(vals[0]), int(vals[1])
         # re-tighten an oversized capacity (the startup autotune saw the
         # initial population); 2x hysteresis against the 1.2x target
-        want_tight = max(0.25, n * 1.2 / max(loop.model.capacity, 1))
+        want_tight = max(0.25, n * 1.2 / max(capacity_now(), 1))
         if cfg.isect_mult > 2.0 * want_tight:
             logger.info(
                 f"isect_mult {cfg.isect_mult} oversized for {n} intersections at "
-                f"capacity {loop.model.capacity}: re-running the binning autotune"
+                f"capacity {capacity_now()}: re-running the binning autotune"
             )
             autotuned = False  # the main loop re-runs autotune_isect_mult
             return
-        ov_cap = _ov_capacity(loop.model.capacity, cfg.ov_frac)
+        ov_cap = _ov_capacity(capacity_now(), cfg.ov_frac)
         if n_ov > 0.85 * ov_cap:
             cfg.ov_frac = round(min(1.0, cfg.ov_frac * 2.0), 3)
             logger.info(f"{n_ov} overflow gaussians near capacity {ov_cap}: raising ov_frac to {cfg.ov_frac}")
@@ -577,6 +680,8 @@ def train(
         maybe_grow_isect_mult(n, loop.step)
 
     densify_step = make_densify_step(cfg)
+    if gauss:
+        sharded_densify_step = gauss_shard.make_sharded_densify_step(_dcfg(cfg), mesh)
     means_lr = log_lerp_schedule(
         cfg.means_lr_init, cfg.means_lr_final, cfg.means_lr_schedule_max_steps
     )
@@ -584,16 +689,21 @@ def train(
     generator = torch.Generator(device=dev).manual_seed(cfg.random_seed)
 
     tb_writer = None
-    if cfg.output is not None:
+    if cfg.output is not None and rank0:
         tb_path = Path(cfg.output) / "tensorboard"
         logger.info(f"monitor training status: tensorboard --logdir {tb_path}")
         tb_writer = create_tb_writer(str(tb_path))
 
     viewer = None
+    # the viewer reads .model and .active_sh_degree: the loop's, or under
+    # gauss a gathered copy refreshed every iteration
+    view_src = None
     if cfg.view_online and cfg.output is not None:
+        view_src = dataclasses.replace(loop, model=full_state(loop.model)) if gauss else loop
+    if cfg.view_online and cfg.output is not None and rank0:
         from ..viewer.integration import construct_training_viewer
 
-        viewer = construct_training_viewer(loop, cfg, Path(cfg.output))
+        viewer = construct_training_viewer(view_src, cfg, Path(cfg.output))
 
     save_iters = set(cfg.save_model_iterations)
     background = _background(cfg, dev)
@@ -602,13 +712,16 @@ def train(
     # index on the card (streaming when a split does not fit the budget);
     # the eval split unpadded, as the JAX trainer keeps it
     frame_cache = eval_cache = None
+    # under a mesh, frames are padded to a multiple of the stripe count (pad
+    # rows masked out); the eval split, rendered whole on rank 0, is not
+    pad_unit = 1 if mesh is None else mesh.size * max(1, cfg.stripe_interleave)
     if cfg.data_device_cache:
         from ..scene.device_cache import build_cache
 
         workers = max(1, cfg.dataloader_workers)
         frame_cache = build_cache(scene, "train", cfg.data_device_cache_mb,
-                                  num_workers=workers, device=dev)
-        if scene.nbr_data("eval") > 0 and frame_cache is not None:
+                                  num_workers=workers, pad_rows_to=pad_unit, device=dev)
+        if scene.nbr_data("eval") > 0 and frame_cache is not None and rank0:
             eval_cache = build_cache(scene, "eval", cfg.data_device_cache_mb,
                                      num_workers=workers, device=dev)
 
@@ -653,7 +766,7 @@ def train(
             autotune_isect_mult(data)
             autotuned = True
 
-        if cfg.profile_steps > 0 and cfg.output is not None:
+        if cfg.profile_steps > 0 and cfg.output is not None and rank0:
             if step == 10 and profiler is None:
                 from ..utils.profiling import Trace
 
@@ -668,11 +781,23 @@ def train(
         reset_now = in_refine and (step - cfg.refine_start) % cfg.reset_opacities_every == 0
 
         w2c, K, image, mask = _frame_tensors(data, dev)
-        loop.model, loop.adam, ld = train_step(
-            loop.model, loop.adam, w2c, K, image, mask,
-            means_lr(step), in_refine, densify_now, reset_now,
-            height=data["height"], width=data["width"], sh_degree=loop.active_sh_degree,
-        )
+        if mesh is None:
+            loop.model, loop.adam, ld = train_step(
+                loop.model, loop.adam, w2c, K, image, mask,
+                means_lr(step), in_refine, densify_now, reset_now,
+                height=data["height"], width=data["width"], sh_degree=loop.active_sh_degree,
+            )
+        else:
+            if step == 1:
+                _check_same_frame(w2c, mesh)
+            image, mask = _pad_rows(image, mask, pad_unit)
+            make = (gauss_shard.make_gauss_sharded_train_step if gauss
+                    else shard.make_sharded_train_step)
+            loop.model, loop.adam, ld = make(cfg, mesh, render_fn, image.shape[0], data["width"])(
+                loop.model, loop.adam, w2c, K, image, mask,
+                means_lr(step), in_refine, densify_now, reset_now,
+                sh_degree=loop.active_sh_degree,
+            )
 
         log_now = (
             step == 1
@@ -685,28 +810,41 @@ def train(
             _drain_losses(min_pending=3)
 
         if step in save_iters and cfg.output is not None:
-            save_checkpoint(
-                Path(cfg.output) / "checkpoints" / f"iterations_{step}.npz",
-                loop.model, loop.active_sh_degree, step,
-                adam=loop.adam if cfg.save_optimizer_state else None,
-            )
+            model = full_state(loop.model)
+            adam = full_state(loop.adam) if cfg.save_optimizer_state else None
+            if rank0:
+                save_checkpoint(
+                    Path(cfg.output) / "checkpoints" / f"iterations_{step}.npz",
+                    model, loop.active_sh_degree, step, adam=adam,
+                )
+            del model, adam
 
         if scene.nbr_data("eval") > 0 and (step == 1 or step % cfg.eval_every == 0):
-            metrics = evaluator.evaluate(
-                scene, "eval", loop.model, loop.active_sh_degree, background,
-                num_workers=cfg.dataloader_workers, cache=eval_cache,
-            )
-            for k, v in metrics.items():
-                if "render" in k:
-                    all_tb_info[f"render/{k}"] = v
-                elif k in ("psnr", "ssim", "lpips", "lpips_proxy", "fps", "latency_ms",
-                           "latency_device_ms"):
-                    all_tb_info[f"eval/{k}"] = v
-            logger.info("eval @ step %d: %s", step, ", ".join(
-                f"{k}={v:.4f}" for k, v in metrics.items() if isinstance(v, float)))
+            # full single-device frames of the whole model, on rank 0
+            model = full_state(loop.model)
+            if rank0:
+                metrics = evaluator.evaluate(
+                    scene, "eval", model, loop.active_sh_degree, background,
+                    num_workers=cfg.dataloader_workers, cache=eval_cache,
+                )
+                for k, v in metrics.items():
+                    if "render" in k:
+                        all_tb_info[f"render/{k}"] = v
+                    elif k in ("psnr", "ssim", "lpips", "lpips_proxy", "fps", "latency_ms",
+                               "latency_device_ms"):
+                        all_tb_info[f"eval/{k}"] = v
+                logger.info("eval @ step %d: %s", step, ", ".join(
+                    f"{k}={v:.4f}" for k, v in metrics.items() if isinstance(v, float)))
+            del model
+            if mesh is not None:
+                dist.barrier()
 
         if densify_now:
-            info = run_densify_with_growth(loop, densify_step, generator, cfg)
+            if gauss:
+                info = run_sharded_densify_with_growth(loop, sharded_densify_step, generator,
+                                                       cfg, mesh)
+            else:
+                info = run_densify_with_growth(loop, densify_step, generator, cfg)
             # on the grown population, so the next step's capacity covers it
             check_isect_capacity(data)
             all_tb_info["train/densify"] = {"split": info["split"], "clone": info["clone"]}
@@ -732,6 +870,10 @@ def train(
                 f"({step / elapsed:.2f} it/s)"
             )
 
+        if view_src is not None:
+            view_src.active_sh_degree = loop.active_sh_degree
+            if gauss:
+                view_src.model = full_state(loop.model)
         if viewer is not None:
             viewer.update_render_image()
 
@@ -742,4 +884,29 @@ def train(
         tb_writer.close()
     if viewer is not None:
         viewer.stop()
+    if gauss:  # every rank returns the whole state
+        loop.model, loop.adam = full_state(loop.model), full_state(loop.adam)
     return loop
+
+
+def _pad_rows(image: torch.Tensor, mask: torch.Tensor, unit: int):
+    """Pad a frame's rows up to a multiple of ``unit`` (image rows 0, mask
+    rows 1, which the loss ignores); cached frames arrive padded."""
+    pad = -image.shape[0] % unit
+    if pad:
+        image = torch.cat([image, image.new_zeros((pad,) + tuple(image.shape[1:]))])
+        mask = torch.cat([mask, mask.new_ones((pad,) + tuple(mask.shape[1:]))])
+    return image, mask
+
+
+def _check_same_frame(w2c: torch.Tensor, mesh) -> None:
+    """Every rank must train on the same frame each step: a rank seeded
+    otherwise draws another frame order and would render its stripe of
+    another camera."""
+    from ..parallel import collectives as col
+
+    hi = col.all_reduce(w2c, mesh.world, "max")
+    if not torch.equal(hi, -col.all_reduce(-w2c, mesh.world, "max")):
+        raise RuntimeError(
+            "the ranks drew different frames: seed every rank alike (random, numpy)"
+        )

@@ -133,7 +133,7 @@ def _bin_both(scene, small_budget, ov_capacity):
         torch.as_tensor(m2d), torch.as_tensor(ext), torch.as_tensor(dep),
         trt.image_geometry(H, W, TS), 4, 4, conics=torch.as_tensor(con),
         opacities=torch.as_tensor(opa), ov_capacity=ov_capacity,
-        small_budget=small_budget, height=H,
+        small_budget=small_budget, y_limit=H,
     )
     return jb, tb
 

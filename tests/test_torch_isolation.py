@@ -40,6 +40,8 @@ TRAINING_MODULES = (
     "scene.device_cache", "native", "utils.synthetic", "utils.profiling",
     "evaluation.metrics", "evaluation.lpips", "evaluation.evaluator",
     "train", "eval", "validate_e2e", "viewer.integration", "utils.logging",
+    "parallel", "parallel.mesh", "parallel.distributed", "parallel.collectives",
+    "parallel.shard", "parallel.gauss_shard",
 )
 # the one string of the port that names the JAX package: the checkpoint
 # format tag both packages write and read

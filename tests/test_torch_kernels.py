@@ -79,7 +79,7 @@ def test_binkeys_matches_plain(cuda, rng, small_budget):
     bk.binkeys = rec
     try:
         trt.bin_gaussians(m2d, ext, dep, geom, 4, 4, con, opa, ov_capacity=256,
-                          small_budget=small_budget, height=h)
+                          small_budget=small_budget, y_limit=h)
     finally:
         bk.binkeys = orig
     assert len(calls) == 1

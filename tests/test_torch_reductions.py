@@ -177,7 +177,7 @@ def _bin_port(scene, small_budget, ov_capacity):
     ext = trt.binning_extents(con, opa, rad)
     return trt.bin_gaussians(
         m2d, ext, dep, trt.image_geometry(BIN_H, BIN_W, BIN_TS), 4, 4, conics=con,
-        opacities=opa, ov_capacity=ov_capacity, small_budget=small_budget, height=BIN_H,
+        opacities=opa, ov_capacity=ov_capacity, small_budget=small_budget, y_limit=BIN_H,
     )
 
 

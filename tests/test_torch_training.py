@@ -450,19 +450,39 @@ def test_train_loop_matches_jax(rng, monkeypatch):
 
 
 def test_train_refuses_what_is_not_ported(rng, tmp_path, monkeypatch):
-    """``mesh_shape`` raises naming its ROADMAP.md item; ``view_online`` with
-    an output directory builds the training viewer and trains every step;
-    ``view_online`` and ``profile_steps`` without an output directory are
-    ignored, as the JAX trainer ignores them."""
+    """``mesh_shape`` refuses a shape that does not parse (``ValueError``,
+    as the JAX trainer), a world that is not joined, and a device count
+    other than the world's size; ``view_online`` with an output directory
+    builds the training viewer and trains every step; ``view_online`` and
+    ``profile_steps`` without an output directory are ignored, as the JAX
+    trainer ignores them."""
+    import torch.distributed as dist
+
     from easy_gaussian_splatting_torch.viewer import integration as tint
+    from torch_parallel_worker import free_port
 
     arrays, alive, w2c, K, image, mask = _scene_arrays(rng)
     frame = dict(K=K, height=H, width=W, w2c=w2c, image=image, mask=mask)
     scene = _OneCameraScene(arrays["means"][:N], np.zeros((N, 3), np.uint8), frame, 3)
     base = dict(CFG, total_iterations=3)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttrainer.train(tconfig.config_from_dict(dict(base, mesh_shape="tiles:4")), scene=scene,
+
+    def mesh_train(shape):
+        ttrainer.train(tconfig.config_from_dict(dict(base, mesh_shape=shape)), scene=scene,
                        device="cpu")
+
+    for shape in ("tiles:x", "rows:2", "tiles:2:1", "gauss:0", "tiles"):
+        with pytest.raises(ValueError, match="invalid mesh_shape"):
+            mesh_train(shape)
+    with pytest.raises(RuntimeError, match="initialised process group of 4 ranks"):
+        mesh_train("tiles:4")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        for shape in ("tiles:4", "gauss:2,tiles:2"):
+            with pytest.raises(ValueError, match="needs a world of 4 ranks, have 1"):
+                mesh_train(shape)
+    finally:
+        dist.destroy_process_group()
     viewers = []
     construct = tint.construct_training_viewer
     monkeypatch.setattr(tint, "construct_training_viewer", lambda loop, cfg, out: viewers.append(
