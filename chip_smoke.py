@@ -21,7 +21,9 @@ its offline viewer, the first main path of the port:
    dataset camera, a 720p orbit, a 180p rung with ``sh_cap: 1``); the
    first frame is held against the same frame from the plain versions,
    every frame must fit its intersection capacity, and both kernels'
-   launch counts must rise during the requests;
+   launch counts must rise during the requests (the closure replays a
+   CUDA graph captured per frame size; a replay adds the launches its
+   capture recorded);
 6. numbers: request latency, each kernel's and plain version's time
    (CUDA events; ``binkeys`` also on the device alone), its lower bound on
    this card, the forward's work counts (pairs reached and composited,
@@ -41,9 +43,15 @@ and then through its trainer, the second:
 9. train: the port's ``train()`` for 40 steps on cuda with
    ``configs/nerf_synthetic.yaml``'s values and a compressed schedule
    (printed), so densify runs at steps 20, 30, 40 and the opacity reset at
-   30; every kernel's launches rise every step, no step is truncated, the
-   loss falls before the first event and the checkpoint reloads with its
-   Adam state;
+   30; the step runs as a CUDA graph per signature (its captures printed;
+   so in phases 11, 13 and 15); every kernel's launches rise every step,
+   no step is truncated, the loss falls before the first event and the
+   checkpoint reloads with its Adam state. A wrapper's launch counter does
+   not run on a replay (the graph adds the launches its capture recorded),
+   so every replayed step outside the timed ones runs under the profiler:
+   the kernels it saw run must equal the counters' increments, one of each
+   main-path kernel a step (so the replays of phases 11 (b) and 13 (a); and
+   every ``profile_device`` profile holds its kernels to the counters);
 10. numbers: step time, both backward kernels' and plain versions' times
    and bounds, the backward's work counts (pairs walked from its warps'
    horizons, composited, kept by its cull), ``tiled_forward`` checked,
@@ -137,7 +145,31 @@ from this process (a rank that fails fails the run):
    equal, the capacity is the growth arithmetic's, and rank 0's checkpoint
    renders a finite frame in the single-device viewer path. Peak memory and
    the collectives each backend ran, per rank. Two processes time-share one
-   card there: their step times are no scaling number.
+   card there: their step times are no scaling number;
+
+and then through the compiled step (run after phase 16 (a), before 13, on
+phase 8's state and frames and the served model of phases 3-6):
+
+17. (a) 40 steps of phase 9's schedule from phase 8's state compacted to
+   the capacity rung above its population (1,048,576): eager, eager with
+   the flags and learning rate as 0-d tensors on the card, and through
+   ``GraphedTrainStep``; the first densify event grows the capacity, so
+   the graphed step captures again; every step's state fingerprint and
+   loss scalars and the final state bit for bit equal to the eager run's,
+   the captures' times and pools printed, and where each run's memory
+   peak rose; then 8 steps over frames of two sizes in turn (800x800 and
+   800x600): one capture a size, kept, and bit for bit the eager steps;
+   (b) 3 steps eager and graphed
+   under each backward reduction (``band``, ``scan``, ``pallas``,
+   ``dense``) and under the ``xla`` grid binning, bit for bit equal; (c)
+   step medians eager and graphed in the order p c p c p c, the host time
+   inside the step call (the loop's ``dispatch`` bucket), and a profile of
+   3 steps of each (device busy, idle share, and one of each main-path
+   kernel a step seen by the profiler); (d) the served closure at 800x800,
+   1280x720 and 320x180, graphed against eager: frames bit for bit equal,
+   latency medians, re-renders, captures, and one graphed frame a size
+   under the profiler (its kernels equal to the counters' increments);
+   (e) peak device memory of (a) and (d).
 
 Then one JSON line of the seven kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
@@ -213,6 +245,8 @@ TRAIN_SCHEDULE = dict(
     data_device_cache=False, log_every=1, dataloader_workers=2,
 )
 TIMED_STEPS = range(14, 19)  # steps 15-19: the five before the first event
+# the steps whose replays run under the profiler: the others
+PROFILED_STEPS = set(range(1, 41)) - {i + 1 for i in TIMED_STEPS}
 
 
 class SmokeFailure(Exception):
@@ -574,14 +608,65 @@ def forward_bound(args, n: dict):
     return new, old
 
 
-def profile_device(fn, reps: int, what: str, tag: str, top: int = 14) -> None:
+# each kernel's name in the profiler (its __global__ function in csrc/)
+KERNEL_SYMBOLS = {
+    "binkeys": "binkeys_kernel", "tiled_forward": "tile_forward_kernel",
+    "tiled_backward": "tile_backward_kernel", "segsum_band": "segsum_band_kernel",
+    "segsum_compact": "segsum_compact_kernel", "monotone_expand": "monotone_expand_kernel",
+    "group_reduce": "group_reduce_kernel",
+}
+
+
+def kernel_launches(prof) -> dict:
+    """The launches of each of the port's kernels that ``prof`` (a finished
+    ``torch.profiler.profile``) saw run on the card, by kernel name: a
+    measurement, independent of the wrappers' launch counters (which a
+    replayed CUDA graph adds from its capture)."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    seen = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name, sym in KERNEL_SYMBOLS.items():
+                if re.search(rf"\b{sym}\b", e.key):
+                    seen[name] += e.count
+    return seen
+
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler`` (host and device activity), the
+    card synchronized at both ends: (its result, the profile)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+def check_measured(tag: str, what: str, seen: dict, counted: dict) -> None:
+    """The kernels the profiler saw against the counters' increments over
+    the same calls: equal for every kernel, or the run fails."""
+    check(seen == counted, f"[{tag}] {what}: the profiler saw launches {seen} but the launch "
+          f"counters rose by {counted}")
+
+
+def profile_device(fn, reps: int, what: str, tag: str, top: int = 14) -> dict:
     """Where the time of ``reps`` calls of ``fn`` goes: ``torch.profiler``
-    device time by kernel, and the device's busy share of the wall."""
+    device time by kernel, and the device's busy share of the wall. The
+    port's kernels the profiler saw must equal the counters' increments
+    over the ``reps`` calls (a replayed graph's included). Returns the busy
+    and wall ms a call, the idle share and the launches seen."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -590,6 +675,9 @@ def profile_device(fn, reps: int, what: str, tag: str, top: int = 14) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
 
+    seen = kernel_launches(prof)
+    check_measured(tag, f"{reps} {what}s profiled", seen,
+                   {k: v - before[k] for k, v in counts().items()})
     rows = [  # device-side events only (kernels, copies), not the host ops
         (e.self_device_time_total / 1e3, e.count, e.key)
         for e in prof.key_averages()
@@ -597,13 +685,18 @@ def profile_device(fn, reps: int, what: str, tag: str, top: int = 14) -> None:
     ]
     rows = [r for r in rows if r[0] > 0]
     busy = sum(r[0] for r in rows)
+    out = dict(busy_ms=busy / reps, wall_ms=wall_ms / reps, idle_share=1 - busy / wall_ms,
+               launches=seen)
+    log(f"[{tag}] the profiler saw " + ", ".join(f"{k} {v}" for k, v in seen.items() if v)
+        + f" over {reps} {what}s, equal to the launch counters' increments")
     if not rows:
         log(f"[{tag}] profile: no device time recorded")
-        return
+        return out
     log(f"[{tag}] profile of {reps} {what}s: wall {wall_ms / reps:.2f} ms/{what}, "
         f"device busy {busy / reps:.2f} ms/{what} (idle share {1 - busy / wall_ms:.3f})")
     for ms, n, key in sorted(rows, reverse=True)[:top]:
         log(f"[{tag}]   {ms / reps:8.3f} ms/{what}  {n / reps:6.1f} calls/{what}  {key[:90]}")
+    return out
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -831,11 +924,27 @@ def zero_counts() -> None:
 PER_STEP = {"binkeys": 1, "tiled_forward": 1, "tiled_backward": 1, "segsum_band": 1}
 
 
-def train_recorded(cfg, scene, device):
+def replays(step, model, height: int, width: int, sh_degree: int) -> bool:
+    """Whether a call of ``step`` (a ``GraphedTrainStep``) with ``model`` at
+    this frame size and SH degree replays a program it holds, capturing
+    none (read from its private state: a check of the smoke's own)."""
+    from easy_gaussian_splatting_torch.training.graphs import step_signature
+
+    sig = step_signature(step.cfg, model.capacity, height, width, sh_degree)
+    return (step._state is not None and step._state[0].shape[0] == model.capacity
+            and sig in step._programs)
+
+
+def train_recorded(cfg, scene, device, profile=()):
     """The port's ``train()`` with each step timed (host clock between two
     synchronizes, and CUDA events through ``StepTimer`` in ``rec["timer"]``),
     its launches, loss, intersections and capacity recorded, and the
-    densify and reset events counted."""
+    densify and reset events counted. On the card the steps are the graphed
+    step's (``rec["graphed"]`` holds each ``GraphedTrainStep`` built, with its
+    captures); under a mesh, the eager step's. A graphed step numbered in
+    ``profile`` that replays (captures nothing) runs under the profiler,
+    outside its timing: the launches of each kernel it saw are the step's
+    ``measured`` (:func:`check_replays` holds them to the counters)."""
     import torch
 
     from easy_gaussian_splatting_torch.ops.rasterize_tiled import isect_capacity
@@ -843,16 +952,14 @@ def train_recorded(cfg, scene, device):
     from easy_gaussian_splatting_torch.utils.profiling import StepTimer
 
     timer = StepTimer(device)
-    rec = {"steps": [], "densify": 0, "reset": 0, "timer": timer}
+    rec = {"steps": [], "densify": 0, "reset": 0, "timer": timer, "graphed": []}
     make_orig = ttrainer.make_train_step
+    graphed_orig = ttrainer.GraphedTrainStep
     densify_orig = ttrainer.run_densify_with_growth
     reset_orig = ttrainer.reset_opacities
 
-    def make(cfg_, render_fn):
-        step = make_orig(cfg_, render_fn)
-        mult = cfg_.isect_mult
-
-        def run(model, adam, *a, **k):
+    def timed(step, mult, graphed=None):
+        def call(model, adam, *a, **k):
             before = counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -862,14 +969,34 @@ def train_recorded(cfg, scene, device):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             after = counts()
+            return out, dict(ms=ms, start=t0, launches={n: after[n] - before[n] for n in after})
+
+        def run(model, adam, *a, **k):
+            n = len(rec["steps"]) + 1
+            if graphed is not None and n in profile and replays(
+                    graphed, model, k["height"], k["width"], k["sh_degree"]):
+                (out, st), prof = profiled(lambda: call(model, adam, *a, **k))
+                st["measured"] = kernel_launches(prof)
+            else:
+                out, st = call(model, adam, *a, **k)
             ld = out[2]
             rec["steps"].append(dict(
-                ms=ms, start=t0, launches={n: after[n] - before[n] for n in after},
-                loss=float(ld["total"]), isects=int(ld["isects"]),
+                st, loss=float(ld["total"]), isects=int(ld["isects"]),
                 cap=isect_capacity(model.capacity, mult), capacity=model.capacity,
             ))
             return out
 
+        return run
+
+    def make(cfg_, render_fn):
+        return timed(make_orig(cfg_, render_fn), cfg_.isect_mult)
+
+    def make_graphed(cfg_, render_fn, dev):
+        with swapped(ttrainer, "make_train_step", make_orig):  # the step it captures
+            step = graphed_orig(cfg_, render_fn, dev)
+        rec["graphed"].append(step)
+        run = timed(step, cfg_.isect_mult, step)
+        run.reset = step.reset
         return run
 
     def densify(*a, **k):
@@ -881,10 +1008,40 @@ def train_recorded(cfg, scene, device):
         return reset_orig(*a, **k)
 
     with swapped(ttrainer, "make_train_step", make), \
+            swapped(ttrainer, "GraphedTrainStep", make_graphed), \
             swapped(ttrainer, "run_densify_with_growth", densify), \
             swapped(ttrainer, "reset_opacities", reset):
         loop = ttrainer.train(cfg, scene=scene, device=device)
     return loop, rec
+
+
+def check_replays(tag: str, rec, per_step: dict) -> None:
+    """The profiled replays of a ``train()`` run: in each, the kernels the
+    profiler saw run equal the launch counters' increments (which a replay
+    adds from its capture), and each kernel of ``per_step`` ran exactly
+    that many times; fails otherwise, or if no replay was profiled."""
+    prof = [(i + 1, s) for i, s in enumerate(rec["steps"]) if "measured" in s]
+    check(prof, f"[{tag}] no replayed step was profiled")
+    bad = [(n, s["measured"], s["launches"]) for n, s in prof
+           if s["measured"] != s["launches"]
+           or any(s["measured"][k] != v for k, v in per_step.items())]
+    check(not bad, f"[{tag}] replayed steps whose kernels (profiler) differ from the counters "
+          f"or from one of each a step: {bad[:3]}")
+    total = {k: sum(s["measured"][k] for _, s in prof) for k in prof[0][1]["measured"]}
+    log(f"[{tag}] the profiler saw {len(prof)} replayed steps (steps "
+        + " ".join(str(n) for n, _ in prof) + "): each ran "
+        + ", ".join(f"{k} {v}" for k, v in per_step.items())
+        + ", as the launch counters say; in all " + ", ".join(
+            f"{k} {v}" for k, v in total.items() if v))
+
+
+def log_captures(tag: str, rec) -> None:
+    """Each capture of the graphed steps a ``train()`` run built."""
+    caps = [c for g in rec["graphed"] for c in g.captures]
+    log(f"[{tag}] graphed step: {len(caps)} captures (" + "; ".join(
+        f"capacity {c['signature'][0]}, sh {c['signature'][3]}, isect_mult {c['signature'][4]}: "
+        f"warm-up {c['warmup_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, pool "
+        f"{c['pool_bytes'] / 2**20:.0f} MiB" for c in caps) + ")")
 
 
 def check_training(loop, rec, cfg, device) -> None:
@@ -1032,6 +1189,7 @@ REDUCE_SCHEDULE = dict(
     data_device_cache=False, log_every=1, dataloader_workers=2,
 )
 REDUCE_TIMED = range(4, 9)  # steps 5-9: the five before the event
+REDUCE_PROFILED = set(range(1, 13)) - {i + 1 for i in REDUCE_TIMED}
 # each reduction's own kernels and their launches per step ("dense" sums
 # both of its populations in one group_reduce launch)
 REDUCE_KERNELS = {
@@ -1284,7 +1442,8 @@ def train_reduction(name, xyzs, rgbs, frames, device, seed):
         # reduction falls step by step and the runs are comparable (over
         # the four ring views, 9 steps of learning move the loss less than
         # the views differ)
-        loop, rec = train_recorded(cfg, RingScene(xyzs, rgbs, frames[:1], cfg.total_iterations), device)
+        loop, rec = train_recorded(cfg, RingScene(xyzs, rgbs, frames[:1], cfg.total_iterations),
+                                   device, REDUCE_PROFILED)
     total = counts()
     peak = torch.cuda.max_memory_allocated()
     steps = rec["steps"]
@@ -1299,6 +1458,9 @@ def train_reduction(name, xyzs, rgbs, frames, device, seed):
     short = [i + 1 for i, s in enumerate(steps) if any(s["launches"][k] < n for k, n in own.items())]
     check(not short, f"{name}: a kernel was launched fewer times than its per-step count at steps {short}")
     check(all(total[k] == 0 for k in never), f"{name}: another path's kernel ran: {total}")
+    check(rec["graphed"], f"{name}: train() did not run the graphed step")
+    log_captures(f"11 {name}", rec)
+    check_replays(f"11 {name}", rec, own)
     truncated = [i + 1 for i, s in enumerate(steps) if s["isects"] > s["cap"]]
     check(not truncated, f"{name}: truncated steps {truncated}")
     losses = [s["loss"] for s in steps]
@@ -1424,6 +1586,7 @@ DATA_SCHEDULE = dict(
     save_model_iterations=[60], save_optimizer_state=True, log_every=10,
 )
 DATA_TIMED = range(15, 29)  # steps 16-29: after the profiler window, before the event
+DATA_PROFILED = set(range(31, 40))  # replays profiled: after the timed steps and train()'s window
 STREAM_STEPS = 30  # the streamed run (>= the 21 train frames the Scene tiles)
 STREAM_TIMED = range(10, 29)  # its steps 11-29
 # scripts/validate_e2e.py's defaults (--iters 800 --size 128) and its own
@@ -1486,7 +1649,7 @@ def train_data_path(scene_dir: Path, out_dir: Path, device, card: str) -> dict:
     zero_counts()
     t0 = time.perf_counter()
     with data_path_records() as drec:
-        loop, rec = train_recorded(cfg, None, device)
+        loop, rec = train_recorded(cfg, None, device, DATA_PROFILED)
     train_s = time.perf_counter() - t0
     total = counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1504,6 +1667,9 @@ def train_data_path(scene_dir: Path, out_dir: Path, device, card: str) -> dict:
     short = [i + 1 for i, st in enumerate(steps)
              if any(st["launches"][n] < PER_STEP[n] for n in PER_STEP)]
     check(not short, f"a kernel was launched fewer times than its per-step count at steps {short}")
+    check(rec["graphed"], "[13] train() did not run the graphed step")
+    log_captures("13", rec)
+    check_replays("13", rec, PER_STEP)
     truncated = [i + 1 for i, st in enumerate(steps) if st["isects"] > st["cap"]]
     check(not truncated, f"truncated steps: {truncated}")
     check(rec["densify"] == 1 and rec["reset"] == 0,
@@ -1884,6 +2050,8 @@ def view_online(scene_dir: Path, out_dir: Path, cached_ms: float, device, card: 
     short = [i + 1 for i, st in enumerate(steps)
              if any(st["launches"][n] < PER_STEP[n] for n in PER_STEP)]
     check(not short, f"a kernel was launched fewer times than its per-step count at steps {short}")
+    check(rec["graphed"], "[15] train() did not run the graphed step")
+    log_captures("15", rec)
     step_ms = float(np.median([steps[i]["ms"] for i in VIEW_TIMED]))
     it_ms = float(np.median(iteration_ms(steps, VIEW_TIMED)))
     log(f"[15] card: {card}")
@@ -2458,6 +2626,470 @@ def mesh_training(scene_dir: Path, cached_ms: float, card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 17
+# the compiled step at full width: phase 8's state and ring frames under the
+# phase-9 schedule (densify at 20, 30, 40, the opacity reset at 30; no SH
+# bump: sh_degree_interval 0), started at the capacity rung just above the
+# population (1,048,576 for 1M), so that the first densify event grows it
+# and the graphed step captures again
+COMPILED_STEPS = 40
+MIXED_STEPS = 8  # (a): frames of two sizes in turn
+MIXED_HEIGHTS = (800, 600)  # their heights (width 800)
+COMPILED_BASELINE_STEPS = 3  # (b): graphed against eager under each path
+COMPILED_PATHS = (("band", "pallas"), ("scan", "pallas"), ("pallas", "pallas"),
+                  ("dense", "pallas"), ("band", "xla"))  # (BWD_REDUCE, BINNING_IMPL)
+COMPILED_PAIRS = 3  # (c): eager (p) and graphed (c) runs, p c p c p c
+COMPILED_PAIR_STEPS = 12  # steps a run; the medians over steps 3-12
+COMPILED_SIZES = ("dataset", "orbit_720p", "rung_180p")  # (d), phase 5's requests
+
+
+def state_digest(model, adam, ld):
+    """One int64 a state leaf (its bits summed as integers, so any changed
+    bit shows) and each loss scalar, on the card: a step's fingerprint."""
+    import torch
+
+    from easy_gaussian_splatting_torch.training.graphs import state_leaves
+
+    def bits(x):
+        x = x.detach().reshape(-1)
+        if x.dtype == torch.float32:
+            x = x.view(torch.int32)
+        return x.to(torch.int64).sum()
+
+    losses = [ld[k].to(torch.float32).reshape(()).view(torch.int32).to(torch.int64) for k in sorted(ld)]
+    return torch.stack([bits(x) for x in state_leaves(model, adam)] + losses)
+
+
+def clone_state(model, adam):
+    from easy_gaussian_splatting_torch.training.graphs import state_from, state_leaves
+
+    return state_from([x.clone() for x in state_leaves(model, adam)])
+
+
+def compiled_run(step_fn, model, adam, frames, cfg, steps: int, schedule: bool, device):
+    """``steps`` steps of ``step_fn`` over the ring frames in turn. With
+    ``schedule``, the phase-9 schedule's flags and events (densify with
+    growth, the opacity reset); without, every step inside the refine window
+    and no event. Returns the loop state, each step's digest and loss dict
+    (host floats), the capacities and where device memory's peak rose (after
+    which step or densify event)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.models.density import reset_opacities
+    from easy_gaussian_splatting_torch.ops.lr_schedule import log_lerp_schedule
+    from easy_gaussian_splatting_torch.training import trainer as ttrainer
+
+    means_lr = log_lerp_schedule(cfg.means_lr_init, cfg.means_lr_final,
+                                 cfg.means_lr_schedule_max_steps)
+    loop = ttrainer.TrainLoopState(model=model, adam=adam, active_sh_degree=3)
+    gen = torch.Generator(device=device).manual_seed(cfg.random_seed)
+    densify = ttrainer.make_densify_step(cfg)
+    tensors = [[torch.as_tensor(f[k], device=device) for k in ("w2c", "K", "image", "mask")]
+               for f in frames]
+    digests, losses, capacities, peaks = [], [], [], []
+    for step in range(1, steps + 1):
+        in_refine = not schedule or cfg.refine_start < step <= cfg.refine_stop
+        densify_now = schedule and in_refine and (step - cfg.refine_start) % cfg.refine_every == 0
+        reset_now = (schedule and in_refine
+                     and (step - cfg.refine_start) % cfg.reset_opacities_every == 0)
+        loop.model, loop.adam, ld = step_fn(
+            loop.model, loop.adam, *tensors[(step - 1) % len(tensors)], means_lr(step),
+            in_refine, densify_now, reset_now, height=frames[0]["height"],
+            width=frames[0]["width"], sh_degree=3)
+        digests.append(state_digest(loop.model, loop.adam, ld))
+        losses.append({k: v.clone() for k, v in ld.items()})
+        capacities.append(loop.model.capacity)
+        peaks.append((f"step {step}", torch.cuda.max_memory_allocated()))
+        if densify_now:
+            ttrainer.run_densify_with_growth(loop, densify, gen, cfg)
+            peaks.append((f"the densify event after step {step}", torch.cuda.max_memory_allocated()))
+        if reset_now:
+            loop.model, loop.adam = reset_opacities(loop.model, loop.adam, cfg.min_opacity)
+    torch.cuda.synchronize()
+    losses = [{k: float(v) for k, v in ld.items()} for ld in losses]
+    rises = [(what, p) for i, (what, p) in enumerate(peaks) if i == 0 or p > peaks[i - 1][1]]
+    return loop, torch.stack(digests).cpu().numpy(), losses, capacities, rises
+
+
+def mixed_run(step_fn, model, adam, frames, cfg, device):
+    """``MIXED_STEPS`` steps inside the refine window over two ring frames
+    in turn, the second cropped to 800x600 (a scene whose frames come in
+    two sizes). Returns the state (``.model``, ``.adam``), each step's
+    digest and loss dict (host floats) and each step's ms (host clock
+    between synchronizes)."""
+    import types
+
+    import torch
+
+    views = []
+    for f, h in zip(frames, MIXED_HEIGHTS):
+        views.append(([torch.as_tensor(f["w2c"], device=device), torch.as_tensor(f["K"], device=device),
+                       torch.as_tensor(f["image"][:h], device=device),
+                       torch.as_tensor(f["mask"][:h], device=device)], h))
+    digests, losses, ms = [], [], []
+    for step in range(MIXED_STEPS):
+        view, h = views[step % len(views)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, adam, ld = step_fn(model, adam, *view, cfg.means_lr_init, True, False, False,
+                                  height=h, width=800, sh_degree=3)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        digests.append(state_digest(model, adam, ld))
+        losses.append({k: float(v) for k, v in ld.items()})
+    loop = types.SimpleNamespace(model=model, adam=adam)
+    return loop, torch.stack(digests).cpu().numpy(), losses, ms
+
+
+def step_memory(cfg, state0, frames, device) -> None:
+    """(e): where one step's device memory goes at phase 8's state, eager
+    and graphed: the peak allocated above what was allocated before the
+    call, and the bytes allocated in all (``allocated_bytes.all.allocated``
+    of ``torch.cuda.memory_stats``); for the graphed step's first call, of
+    its warm-up calls and of its capture apart, beside the pool it grew."""
+    import torch
+
+    from easy_gaussian_splatting_torch.models.optimizer import init_adam_state
+    from easy_gaussian_splatting_torch.training import graphs
+    from easy_gaussian_splatting_torch.training import trainer as ttrainer
+
+    def total():
+        return torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+
+    view = [torch.as_tensor(frames[0][k], device=device) for k in ("w2c", "K", "image", "mask")]
+    kw = dict(height=800, width=800, sh_degree=3)
+    adam0 = init_adam_state(state0.params)
+    render_fn = ttrainer.get_render_fn(cfg)
+    out = {}
+
+    def measure(name, fn):
+        torch.cuda.synchronize()
+        base, t0 = torch.cuda.memory_allocated(), total()
+        torch.cuda.reset_peak_memory_stats()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name] = ((torch.cuda.max_memory_allocated() - base) / 2**20, (total() - t0) / 2**20)
+        return r
+
+    model, adam = clone_state(state0, adam0)
+    eager = ttrainer.make_train_step(cfg, render_fn)
+    measure("eager step", lambda: eager(model, adam, *view, 1e-4, True, False, False, **kw))
+    del eager
+
+    def measure_capture(fn):
+        base, t0 = torch.cuda.memory_allocated(), total()
+        torch.cuda.reset_peak_memory_stats()
+        r = fn()
+        out["capture"] = ((torch.cuda.max_memory_allocated() - base) / 2**20,
+                          (total() - t0) / 2**20)
+        return r
+
+    class Probe(graphs.Captured):
+        """``Captured`` with its warm-up calls' memory and its capture's
+        measured apart (host-side allocator queries only)."""
+
+        def __init__(self, fn, device, pool=None, warmup=None, what="program", stream=None):
+            torch.cuda.synchronize()
+            base = (torch.cuda.memory_allocated(), total())
+            torch.cuda.reset_peak_memory_stats()
+            calls = []
+
+            def warm():
+                (warmup or fn)()
+                calls.append(None)
+                if len(calls) == graphs.WARMUP_CALLS:
+                    torch.cuda.synchronize()
+                    out["warm-up calls"] = ((torch.cuda.max_memory_allocated() - base[0]) / 2**20,
+                                            (total() - base[1]) / 2**20)
+
+            super().__init__(lambda: measure_capture(fn), device, pool, warm, what, stream)
+
+    model, adam = clone_state(state0, adam0)
+    with swapped(graphs, "Captured", Probe):
+        step = graphs.GraphedTrainStep(cfg, render_fn, device)
+        step(model, adam, *view, 1e-4, True, False, False, **kw)
+    pool = step.captures[0]["pool_bytes"] / 2**20
+    measure("replay", lambda: step(model, adam, *view, 1e-4, True, False, False, **kw))
+    step.reset()
+    del model, adam, step
+    torch.cuda.empty_cache()
+    log(f"[17] (e) one step at phase 8's state (capacity {state0.capacity}), MiB above what was "
+        f"allocated before (peak; allocated in all): "
+        + "; ".join(f"{k} {a:.0f}; {b:.0f}" for k, (a, b) in out.items())
+        + f"; the capture's pool {pool:.0f}")
+
+
+def compare_runs(tag: str, what: str, eager, graphed, name: str = "graphed") -> None:
+    """``name`` (the graphed run) against eager: every step's fingerprint,
+    every loss scalar and the final state bit for bit (fails otherwise, with
+    where they part and by how much)."""
+    from easy_gaussian_splatting_torch.training.graphs import state_leaves
+
+    (e_loop, e_dig, e_loss, *_), (g_loop, g_dig, g_loss, *_) = eager, graphed
+    e_leaves = state_leaves(e_loop.model, e_loop.adam)
+    g_leaves = state_leaves(g_loop.model, g_loop.adam)
+    same_final = all(a.shape == b.shape and bool((a == b).all()) for a, b in zip(e_leaves, g_leaves))
+    same_steps = e_dig.shape == g_dig.shape and bool((e_dig == g_dig).all())
+    same_losses = e_loss == g_loss
+    if same_final and same_steps and same_losses:
+        log(f"[{tag}] {what}: {name} equal to eager bit for bit ({len(e_loss)} steps: every "
+            f"step's state fingerprint, every loss scalar ({', '.join(sorted(e_loss[0]))}), the "
+            f"final params, alive, stats, Adam moments and steps)")
+        return
+    first = next((i + 1 for i in range(min(len(e_dig), len(g_dig)))
+                  if not (e_dig[i] == g_dig[i]).all()), None)
+    rel_loss = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                   for a, b in zip(g_loss, e_loss) for k in b)
+    rel_param = max(float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+                    for a, b in zip(g_leaves[:6], e_leaves[:6]) if a.shape == b.shape)
+    log(f"[{tag}] {what}: {name} DIFFERS from eager: first at step {first}; max relative loss "
+        f"difference {rel_loss:.3e}, final max |d param| / max |param| {rel_param:.3e}")
+    check(False, f"[{tag}] {what}: the {name} step is not bit for bit the eager step")
+
+
+def compiled_step(cfg8, state0, frames, serve, device, card: str) -> None:
+    """Phase 17: the graphed step and the graphed served render against
+    their eager versions at full width; step medians, the device's busy time
+    and idle share, capture times and peak memory."""
+    import dataclasses
+
+    import torch
+
+    from easy_gaussian_splatting_torch.models.gaussians import _round_up_capacity, compact_capacity
+    from easy_gaussian_splatting_torch.models.optimizer import init_adam_state
+    from easy_gaussian_splatting_torch.ops import rasterize_tiled as trt
+    from easy_gaussian_splatting_torch.ops.rasterize_tiled import isect_capacity
+    from easy_gaussian_splatting_torch.training import trainer as ttrainer
+    from easy_gaussian_splatting_torch.training.graphs import WARMUP_CALLS, GraphedTrainStep
+    from easy_gaussian_splatting_torch.training.trainer import tune_inference_cfg
+    from easy_gaussian_splatting_torch.viewer import integration
+    from easy_gaussian_splatting_torch.viewer.integration import make_gs_render_func
+
+    log(f"[17] card: {card}")
+    # ---- (a) 40 steps of the phase-9 schedule: eager, eager with the flags
+    # and learning rate as 0-d tensors on the card (the graph's inputs), then
+    # graphed
+    small, _ = compact_capacity(state0, _round_up_capacity(state0.num_alive()))
+    adam0 = init_adam_state(small.params)
+    # the intersection capacity is relative to the Gaussian capacity: tuned
+    # again for the smaller buffer, with room for the densify events
+    f0 = frames[0]
+    cfg = tune_inference_cfg(dataclasses.replace(cfg8), small, f0["w2c"], f0["K"], 800, 800,
+                             margin=2.0)
+    render_fn = ttrainer.get_render_fn(cfg)
+    runs, peaks = {}, {}
+    graphed_step = None
+    eager_step = ttrainer.make_train_step(cfg, render_fn)
+
+    def tensor_flags(model, adam, w2c, K, image, mask, lr, *flags, **kw):
+        return eager_step(model, adam, w2c, K, image, mask,
+                          torch.tensor(lr, dtype=torch.float32, device=device),
+                          *(torch.tensor(f, device=device) for f in flags), **kw)
+
+    for mode in ("eager", "eager, tensor flags", "graphed"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # what the earlier modes' results hold stays allocated: each peak is
+        # read above this run's start
+        start = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        model, adam = clone_state(small, adam0)
+        if mode == "eager":
+            fn = eager_step
+        elif mode == "graphed":
+            fn = graphed_step = GraphedTrainStep(cfg, render_fn, device)
+        else:
+            fn = tensor_flags
+        t0 = time.perf_counter()
+        runs[mode] = compiled_run(fn, model, adam, frames, cfg, COMPILED_STEPS, True, device)
+        secs = time.perf_counter() - t0
+        peaks[mode] = torch.cuda.max_memory_allocated() - start[0]
+        peaks[mode + " reserved"] = torch.cuda.max_memory_reserved() - start[1]
+        del model, adam, fn
+        _, _, losses, capacities, rises = runs[mode]
+        truncated = sum(ld["isects"] > isect_capacity(c, cfg.isect_mult)
+                        for ld, c in zip(losses, capacities))
+        log(f"[17] (a) {mode}: {COMPILED_STEPS} steps in {secs:.1f} s, capacity {capacities[0]} -> "
+            f"{capacities[-1]}, isect_mult {cfg.isect_mult}, {truncated} truncated steps, loss step 1 "
+            f"{losses[0]['total']:.5f}, step {COMPILED_STEPS} {losses[-1]['total']:.5f}; peak device "
+            f"memory above the run's start (its state included) {peaks[mode] / 2**20:.0f} MiB "
+            f"allocated, {peaks[mode + ' reserved'] / 2**20:.0f} MiB reserved; the peak rose after "
+            + ", ".join(f"{what} ({(p - start[0]) / 2**20:.0f})" for what, p in rises))
+    caps = graphed_step.captures
+    check(len(caps) >= 2 and len({c["signature"][0] for c in caps}) >= 2,
+          f"[17] (a) no capture after the capacity grew: {[c['signature'][0] for c in caps]}")
+    log(f"[17] (a) {len(caps)} captures: " + "; ".join(
+        f"capacity {c['signature'][0]}: warm-up ({WARMUP_CALLS} calls) {c['warmup_ms']:.1f} ms, "
+        f"capture {c['capture_ms']:.1f} ms, pool {c['pool_bytes'] / 2**20:.0f} MiB" for c in caps))
+    compare_runs("17", "(a) 40 steps of the phase-9 schedule", runs["eager"],
+                 runs["eager, tensor flags"], "eager with tensor flags")
+    compare_runs("17", "(a) 40 steps of the phase-9 schedule", runs["eager"], runs["graphed"])
+    graphed_step.reset()
+    del runs, graphed_step, eager_step, small, adam0
+    torch.cuda.empty_cache()
+
+    # ---- (a) frames of two sizes in turn: one capture a size, kept
+    adam0 = init_adam_state(state0.params)
+    eager = mixed_run(ttrainer.make_train_step(cfg8, ttrainer.get_render_fn(cfg8)),
+                      *clone_state(state0, adam0), frames, cfg8, device)
+    fn_g = GraphedTrainStep(cfg8, ttrainer.get_render_fn(cfg8), device)
+    graphed = mixed_run(fn_g, *clone_state(state0, adam0), frames, cfg8, device)
+    sizes = [c["signature"][1:3] for c in fn_g.captures]
+    check(sizes == [(h, 800) for h in MIXED_HEIGHTS],
+          f"[17] (a) frames of two sizes in turn captured {sizes}, want one capture a size")
+    log(f"[17] (a) frames of two sizes in turn (800x800, 800x600), {MIXED_STEPS} steps: "
+        f"{len(sizes)} captures ("
+        + "; ".join(f"{c['signature'][2]}x{c['signature'][1]}: capture {c['capture_ms']:.1f} ms, "
+                    f"pool +{c['pool_bytes'] / 2**20:.0f} MiB" for c in fn_g.captures)
+        + "); step ms eager " + " ".join(f"{x:.1f}" for x in eager[3])
+        + ", graphed " + " ".join(f"{x:.1f}" for x in graphed[3]))
+    compare_runs("17", f"(a) frames of two sizes in turn, {MIXED_STEPS} steps", eager, graphed)
+    fn_g.reset()
+    del eager, graphed, fn_g
+    torch.cuda.empty_cache()
+
+    step_memory(cfg8, state0, frames, device)
+
+    # ---- (b) every backward reduction, and the grid binning
+    adam0 = init_adam_state(state0.params)
+    for reduce, binning in COMPILED_PATHS:
+        with swapped(trt, "BWD_REDUCE", reduce), swapped(trt, "BINNING_IMPL", binning):
+            fn_e = ttrainer.make_train_step(cfg8, ttrainer.get_render_fn(cfg8))
+            eager = compiled_run(fn_e, *clone_state(state0, adam0), frames,
+                                 cfg8, COMPILED_BASELINE_STEPS, False, device)
+            fn_g = GraphedTrainStep(cfg8, ttrainer.get_render_fn(cfg8), device)
+            graphed = compiled_run(fn_g, *clone_state(state0, adam0), frames,
+                                   cfg8, COMPILED_BASELINE_STEPS, False, device)
+            cap = fn_g.captures[0]
+            compare_runs("17", f"(b) {reduce} reduction, {binning} binning, "
+                         f"{COMPILED_BASELINE_STEPS} steps (capture {cap['capture_ms']:.1f} ms, "
+                         f"pool {cap['pool_bytes'] / 2**20:.0f} MiB)", eager, graphed)
+            fn_g.reset()
+            del eager, graphed, fn_e, fn_g
+            torch.cuda.empty_cache()
+
+    # ---- (c) step medians, eager (p) and graphed (c) in turn
+    render_fn = ttrainer.get_render_fn(cfg8)
+    tensors = [[torch.as_tensor(f[k], device=device) for k in ("w2c", "K", "image", "mask")]
+               for f in frames]
+    kw = dict(height=frames[0]["height"], width=frames[0]["width"], sh_degree=3)
+    medians, replays, last = [], [], {}
+    for i in range(2 * COMPILED_PAIRS):
+        mode = ("eager", "graphed")[i % 2]
+        fn = (ttrainer.make_train_step(cfg8, render_fn) if mode == "eager"
+              else GraphedTrainStep(cfg8, render_fn, device))
+        model, adam = clone_state(state0, adam0)
+        step_ms, dispatch_ms = [], []
+        for s in range(COMPILED_PAIR_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, adam, _ = fn(model, adam, *tensors[s % len(tensors)], cfg8.means_lr_init,
+                                True, False, False, **kw)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            step_ms.append((t2 - t0) * 1e3)
+            dispatch_ms.append((t1 - t0) * 1e3)
+        medians.append((mode, float(np.median(step_ms[2:])), float(np.median(dispatch_ms[2:]))))
+        if mode == "graphed":  # the host time of the replay alone, inside the call
+            replay_ms = []
+            for _ in range(COMPILED_PAIR_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn.program.replay()
+                replay_ms.append((time.perf_counter() - t0) * 1e3)
+            replays.append(float(np.median(replay_ms)))
+        if i >= 2 * COMPILED_PAIRS - 2:  # the last pair is profiled below
+            last[mode] = (fn, model, adam)
+        elif mode == "graphed":
+            fn.reset()
+        del model, adam, fn
+    prof = {}
+    for mode, (fn, model, adam) in last.items():
+        prof[mode] = profile_device(
+            lambda: fn(model, adam, *tensors[0], cfg8.means_lr_init, True, False, False, **kw),
+            3, "step", f"17 (c) {mode}", top=8)
+        if mode == "graphed":
+            fn.reset()
+    del last, fn, model, adam
+    torch.cuda.empty_cache()
+    pairs = [(medians[2 * j][1], medians[2 * j + 1][1]) for j in range(COMPILED_PAIRS)]
+    log("[17] (c) step medians (steps 3-12, host clock between synchronizes), p c p c p c: "
+        + ", ".join(f"{m} {ms:.2f} ms" for m, ms, _ in medians)
+        + f"; graphed at or below eager in {sum(c <= p for p, c in pairs)} of {COMPILED_PAIRS} pairs")
+    log("[17] (c) dispatch (host time inside the step call, the loop's `dispatch` bucket), medians: "
+        + ", ".join(f"{m} {d:.2f} ms" for m, _, d in medians)
+        + "; of the graphed call, the graph's replay alone (host) "
+        + ", ".join(f"{r:.2f} ms" for r in replays))
+    for mode in ("eager", "graphed"):
+        p = prof[mode]
+        check(all(p["launches"][k] == 3 * n for k, n in PER_STEP.items()),
+              f"[17] (c) the profiler did not see one of each kernel a {mode} step: {p['launches']}")
+        log(f"[17] (c) {mode} step, 3 back to back: device busy {p['busy_ms']:.2f} ms/step, wall "
+            f"{p['wall_ms']:.2f} ms/step, idle share {p['idle_share']:.3f}; the profiler saw "
+            + ", ".join(f"{k} {p['launches'][k]}" for k in PER_STEP))
+
+    # ---- (d) the served render, graphed and eager, at three sizes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    closures = {}
+    for g in (False, True):
+        with contextlib.ExitStack() as stack:
+            if not g:  # the eager closure: no GraphedRender
+                stack.enter_context(swapped(integration, "GraphedRender", lambda *a, **k: None))
+            closures[g] = make_gs_render_func(
+                lambda: serve["state"], lambda: serve["sh_degree"], serve["background"],
+                ttrainer.get_render_fn(serve["cfg"]), cfg=serve["cfg"], base_pixels=serve["base_px"])
+    check(closures[True].graphed is not None and closures[False].graphed is None,
+          "[17] (d) the closures are not one graphed, one eager")
+    for name in COMPILED_SIZES:
+        cam = serve["cams"][name]
+        want = closures[False](cam)
+        rer_e = closures[False].stats["rerenders"]
+        got = closures[True](cam)
+        rer_g = closures[True].stats["rerenders"]
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"[17] (d) {name}: the graphed frame differs from the eager frame "
+              f"(max |diff| {float(np.abs(got - want).max()):.3e})")
+        times = {False: [], True: []}
+        for _ in range(REQUEST_REPEATS):
+            for g in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                closures[g](cam)  # ends with the image on the host
+                times[g].append((time.perf_counter() - t0) * 1e3)
+        before = counts()
+        _, prof = profiled(lambda: closures[True](cam))
+        seen = kernel_launches(prof)
+        check_measured("17", f"(d) {name}: one graphed frame", seen,
+                       {k: v - before[k] for k, v in counts().items()})
+        st = closures[True].stats
+        check(seen["binkeys"] == seen["tiled_forward"] == 1 + st["rerenders"],
+              f"[17] (d) {name}: a graphed frame ran {seen}")
+        log(f"[17] (d) {name}: the profiler saw binkeys {seen['binkeys']} and tiled_forward "
+            f"{seen['tiled_forward']} in one graphed frame, as the launch counters say")
+        log(f"[17] (d) {name} {cam.width}x{cam.height}: graphed frame equal to eager bit for bit; "
+            f"closure latency median (host clock, image on the host, {REQUEST_REPEATS} each) eager "
+            f"{float(np.median(times[False])):.2f} ms, graphed {float(np.median(times[True])):.2f} ms; "
+            f"re-renders on the first frame eager {rer_e}, graphed {rer_g}; {st['num_isects']} "
+            f"intersections of capacity {st['isect_cap']}")
+    caps = closures[True].graphed.captures
+    log(f"[17] (d) {len(caps)} render captures: " + "; ".join(
+        f"{c['key'][0]}x{c['key'][1]} sh {c['key'][2]}: capture {c['capture_ms']:.1f} ms, pool "
+        f"{c['pool_bytes'] / 2**20:.0f} MiB" for c in caps))
+    log(f"[17] (e) peak device memory (max_memory_allocated / max_memory_reserved; (a) above "
+        f"each run's start, its state included): (a) eager "
+        f"{peaks['eager'] / 2**20:.0f} / {peaks['eager reserved'] / 2**20:.0f} MiB, eager with "
+        f"tensor flags {peaks['eager, tensor flags'] / 2**20:.0f} / "
+        f"{peaks['eager, tensor flags reserved'] / 2**20:.0f} MiB, graphed "
+        f"{peaks['graphed'] / 2**20:.0f} / {peaks['graphed reserved'] / 2**20:.0f} MiB; (d) "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} / "
+        f"{torch.cuda.max_memory_reserved() / 2**20:.0f} MiB (both closures, the served model "
+        f"and phase 8's state resident)")
+    del closures
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main
 def http(port: int, path: str, payload=None):
     url = f"http://localhost:{port}{path}"
@@ -2478,7 +3110,9 @@ def run(args) -> dict:
     from easy_gaussian_splatting_torch.ops.kernels import _build
     from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
     from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+    from easy_gaussian_splatting_torch.training.graphs import WARMUP_CALLS
     from easy_gaussian_splatting_torch.training.trainer import get_render_fn
+    from easy_gaussian_splatting_torch.viewer import integration
     from easy_gaussian_splatting_torch.viewer.integration import make_gs_render_func
 
     device = torch.device(DEVICE)
@@ -2513,10 +3147,13 @@ def run(args) -> dict:
     base_px = cams[0].width * cams[0].height
 
     def closure():
-        return make_gs_render_func(
-            lambda: state, lambda: sh_degree, background, get_render_fn(cfg),
-            cfg=cfg, base_pixels=base_px,
-        )
+        # eager (no GraphedRender): the recorded kernel calls are the frame's
+        # own, and the plain versions (which read offsets on the host) run
+        with swapped(integration, "GraphedRender", lambda *a, **k: None):
+            return make_gs_render_func(
+                lambda: state, lambda: sh_degree, background, get_render_fn(cfg),
+                cfg=cfg, base_pixels=base_px,
+            )
 
     probe = closure()
     with recording(bk, "binkeys") as bk_calls, recording(tr, "tiled_forward") as fw_calls:
@@ -2622,8 +3259,10 @@ def run(args) -> dict:
         f"{old_bound:.4f} ms ({old_by})); {int(fw_args[1][-1])} listed rows of "
         f"{fw_args[0].shape[0]}")
     log_forward_counts("6", "the served 800x800 frame", fw_work)
+    warm = WARMUP_CALLS * len(viewer.base_render_func.graphed.captures)
     log(f"[6] launches per rendered frame: binkeys {(served_counts[0] - after_build[0]) / frames:g}, "
-        f"tiled_forward {(served_counts[1] - after_build[1]) / frames:g}")
+        f"tiled_forward {(served_counts[1] - after_build[1]) / frames:g} (a replay adds one of "
+        f"each; {warm} of each are the captures' warm-up calls, {WARMUP_CALLS} a capture)")
     render = viewer.base_render_func  # the served closure, its capacities tuned
     for name in requests:
         cam = first[name][0]
@@ -2640,6 +3279,14 @@ def run(args) -> dict:
             f"median {float(np.median(render_ms)):.1f} ms over {REQUEST_REPEATS}")
     log(f"[6] max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     profile_device(lambda: render(first["dataset"][0]), 3, "frame", "6")
+    caps = render.graphed.captures
+    check(caps, "[6] the served closure captured no render")
+    log(f"[6] the served closure replays {len(caps)} captured renders: " + "; ".join(
+        f"{c['key'][0]}x{c['key'][1]} sh {c['key'][2]} isect_mult {c['key'][4]:.3f} in "
+        f"{c['capture_ms']:.1f} ms" for c in caps))
+    # phase 17 (d) serves the same model again
+    serve = dict(state=state, sh_degree=sh_degree, background=background, cfg=cfg, base_px=base_px,
+                 cams={name: first[name][0] for name in requests})
     del viewer, render, probe, ref, stats
     torch.cuda.empty_cache()
 
@@ -2694,7 +3341,8 @@ def run(args) -> dict:
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    loop, rec = train_recorded(tcfg, RingScene(xyzs, rgbs, frames, tcfg.total_iterations), device)
+    loop, rec = train_recorded(tcfg, RingScene(xyzs, rgbs, frames, tcfg.total_iterations), device,
+                               PROFILED_STEPS)
     train_s = time.perf_counter() - t0
     train_counts = counts()
     train_peak = torch.cuda.max_memory_allocated()
@@ -2702,9 +3350,12 @@ def run(args) -> dict:
         f"{rec['reset']} opacity resets, {loop.model.num_alive()} gaussians at the end (capacity "
         f"{loop.model.capacity}), final isect_mult {tcfg.isect_mult}")
     log("[9] launches in train(): " + ", ".join(f"{k} {v}" for k, v in train_counts.items()))
+    check(rec["graphed"], "[9] train() did not run the graphed step")
+    log_captures("9", rec)
     log("[9] intersections / capacity per step: "
         + " ".join(f"{s['isects']}/{s['cap']}" for s in rec["steps"]))
     check_training(loop, rec, tcfg, device)
+    check_replays("9", rec, PER_STEP)
 
     # ---- phase 10: numbers
     step_ms = [rec["steps"][i]["ms"] for i in TIMED_STEPS]
@@ -2800,6 +3451,11 @@ def run(args) -> dict:
     # ---- phase 16 (a): the mesh's gradients and steps on phase 8's state
     torch.cuda.empty_cache()
     mesh_launches = mesh_gradients(cfg8, state0, frames[0], card)
+
+    # ---- phase 17: the compiled step and the graphed served render against
+    # their eager versions (phase 8's state and frames; the served model)
+    torch.cuda.empty_cache()
+    compiled_step(cfg8, state0, frames, serve, device, card)
 
     # ---- phase 13: train(cfg) from a data path, at full width from a
     # COLMAP directory, then the convergence check

@@ -7,8 +7,10 @@ corrected square root). Moments live in capacity-padded buffers shaped like
 the parameters, so "surgery" at a densify event is masked zeroing; each
 group has its own step count, and a group whose parameter was re-created
 this step (densify: all six; opacity reset: ``logit_opacities``) skips its
-update entirely. Every function here returns new tensors, as the JAX
-package's do: nothing is updated in place.
+update entirely (:func:`select`: a ``torch.where`` on a 0-d flag, which
+may live on the device). Every function here returns new tensors, as the
+JAX package's do, except :func:`adam_update` with ``in_place`` (the
+graphed step's, which writes into its donated buffers).
 """
 
 from __future__ import annotations
@@ -32,6 +34,23 @@ class AdamState:
     steps: Dict[str, torch.Tensor]  # per-group 0-dim i32
 
 
+def select(flag: bool | torch.Tensor, if_true: torch.Tensor, if_false: torch.Tensor,
+           out: torch.Tensor | None = None):
+    """``torch.where(flag, if_true, if_false)`` for a 0-d bool tensor; for a
+    host bool, the chosen tensor itself. ``where`` copies the chosen value
+    exactly, so both give the same bits, and a host bool makes no tensor
+    on the device (that copy would wait for the card). With ``out`` (which
+    may be one of the two), the choice is written there and returned."""
+    if isinstance(flag, torch.Tensor):
+        if out is None:
+            return torch.where(flag, if_true, if_false)
+        return torch.where(flag, if_true, if_false, out=out)
+    chosen = if_true if flag else if_false
+    if out is None or chosen is out:
+        return chosen
+    return out.copy_(chosen)
+
+
 def init_adam_state(params: GaussianParams) -> AdamState:
     device = params.means.device
     return AdamState(
@@ -45,21 +64,25 @@ def adam_update(
     params: GaussianParams,
     grads: GaussianParams,
     state: AdamState,
-    lrs: Dict[str, float | torch.Tensor],  # per-group learning rate
-    skips: Dict[str, bool] | None = None,  # per-group: skip the update
+    lrs: Dict[str, float | torch.Tensor],  # per-group learning rate (0-d tensor or number)
+    skips: Dict[str, bool | torch.Tensor] | None = None,  # per-group: skip the update
+    in_place: bool = False,
 ) -> tuple[GaussianParams, AdamState]:
     """One Adam step per group. The bias corrections ``1 - beta**t`` are
-    taken in f32 on the step tensor, as the JAX package computes them."""
+    taken in f32 on the step tensor, as the JAX package computes them. A
+    skip keeps the group's parameter, moments and step count: a 0-d bool
+    tensor through ``torch.where``, as the JAX package's traced skips do (so
+    one captured step serves skipped and updated steps alike), a bool on the
+    host with no tensor made (see :func:`select`). With ``in_place`` the
+    new parameters, moments and step counts are written into the tensors of
+    ``params`` and ``state``, which are returned (the same bits; the graphed
+    step's donated buffers, so that no second copy of the state is made)."""
     new_params, new_mu, new_nu, new_steps = {}, {}, {}, {}
     for name in PARAM_NAMES:
         p = getattr(params, name)
         mu = getattr(state.mu, name)
         nu = getattr(state.nu, name)
         step = state.steps[name]
-        if skips is not None and bool(skips.get(name, False)):
-            new_params[name], new_mu[name], new_nu[name] = p, mu, nu
-            new_steps[name] = step
-            continue
         g = getattr(grads, name)
         step1 = step + 1
         mu1 = BETA1 * mu + (1.0 - BETA1) * g
@@ -70,8 +93,12 @@ def adam_update(
         lr = lrs[name]
         lr = lr if isinstance(lr, torch.Tensor) else float(lr)
         upd = lr * mu_hat / (torch.sqrt(nu_hat) + EPS)
-        new_params[name] = p - upd
-        new_mu[name], new_nu[name], new_steps[name] = mu1, nu1, step1
+        p1 = p - upd
+        skip = False if skips is None else skips.get(name, False)
+        new_params[name] = select(skip, p, p1, p if in_place else None)
+        new_mu[name] = select(skip, mu, mu1, mu if in_place else None)
+        new_nu[name] = select(skip, nu, nu1, nu if in_place else None)
+        new_steps[name] = select(skip, step, step1, step if in_place else None)
     return (
         GaussianParams(**new_params),
         AdamState(mu=GaussianParams(**new_mu), nu=GaussianParams(**new_nu), steps=new_steps),

@@ -4,9 +4,14 @@
 One step is render -> loss -> backward -> statistics -> grouped Adam for
 one camera; refine events (every ``refine_every`` steps) run densify and
 prune with that step's weight update skipped; scalars are read back a few
-steps late so the host never waits on the card. PyTorch runs eagerly, so
-there is no jit and no background precompiler: a new capacity or SH degree
-needs no rebuild.
+steps late so the host never waits on the card. On the card (with no mesh)
+the step runs as a CUDA graph, one per static signature, over buffers it
+updates in place (``graphs.GraphedTrainStep``, the counterpart of the JAX
+step's ``jax.jit`` with donation): a new capacity, SH degree or binning
+retune captures a new graph at its first step, where the JAX trainer
+compiles ahead in a background thread. On the CPU the step runs eagerly.
+``EGS_TORCH_LOOP_TIMING=1`` logs the loop's wall time in buckets every 100
+steps, as ``EGS_TPU_LOOP_TIMING`` does.
 
 ``train(cfg)`` with no scene object builds the ``Scene`` from ``cfg.data``
 (COLMAP or Blender), keeps the train and eval splits on the device
@@ -17,7 +22,8 @@ records a profiler window when ``profile_steps`` and ``output`` are set.
 ``view_online`` with an output directory serves the training viewer: its
 HTTP threads only post the requested camera to a ``DelayRender`` mailbox,
 and the loop renders the newest request once per iteration, between
-steps, so the card's cadence stays the loop's. ``make_batched_train_step``
+steps, so the card's cadence stays the loop's, and the frame reads the
+step's buffers whole. ``make_batched_train_step``
 is the multi-camera step (B views, one Adam update with the mean
 gradient); ``train()`` keeps batch 1.
 
@@ -35,10 +41,12 @@ gathered state.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import logging
 import math
+import os
 import random
 import time
 from pathlib import Path
@@ -57,6 +65,7 @@ from ..models.density import (
 )
 from ..models.gaussians import (
     PARAM_NAMES,
+    DensifyStats,
     GaussianModelState,
     GaussianParams,
     _round_up_capacity,
@@ -71,10 +80,12 @@ from ..models.optimizer import (
     grow_adam_state,
     init_adam_state,
     permute_adam_state,
+    select,
 )
 from ..models.render import CameraView, render
 from ..ops.lr_schedule import log_lerp_schedule
 from .config import Config
+from .graphs import GraphedTrainStep
 
 logger = logging.getLogger(__name__)
 
@@ -198,27 +209,39 @@ def _loss_and_grads(cfg: Config, render_fn: Callable, model: GaussianModelState,
 
 
 def _view_grads(cfg: Config, render_fn: Callable, model: GaussianModelState, stats,
-                w2c, K, image, mask, do_stats: bool, height: int, width: int,
-                sh_degree: int):
+                w2c, K, image, mask, do_stats: bool | torch.Tensor, height: int, width: int,
+                sh_degree: int, in_place: bool = False):
     """One view of a train step: its pre-Adam gradients, its loss dict (with
     the binned intersection count as ``isects``, the capacity watchdog's
     channel) and ``stats`` with this view's observations added when
-    ``do_stats`` (inside the refine window)."""
+    ``do_stats`` (inside the refine window). A 0-d bool tensor
+    ``do_stats`` picks the statistics with ``torch.where``, as the JAX
+    step does, a host bool with no tensor made; ``in_place`` writes them
+    into ``stats``' tensors."""
     camera = CameraView(w2c=w2c, K=K, width=width, height=height)
     grads, absgrad, ld, radii, num_isects = _loss_and_grads(
         cfg, render_fn, model, camera, image, mask, sh_degree
     )
     if num_isects is not None:
         ld["isects"] = num_isects.to(torch.float32)
-    if do_stats:
+    if isinstance(do_stats, torch.Tensor) or in_place:
+        new = update_statistics(stats, radii, absgrad, height, width)
+        stats = DensifyStats(*(
+            select(do_stats, getattr(new, f.name), getattr(stats, f.name),
+                   getattr(stats, f.name) if in_place else None)
+            for f in dataclasses.fields(DensifyStats)))
+    elif do_stats:
         stats = update_statistics(stats, radii, absgrad, height, width)
     return grads, ld, stats
 
 
 def _apply_adam(cfg: Config, model: GaussianModelState, adam: AdamState, grads,
-                stats, lr_means: float, skip_all: bool, skip_opac: bool):
+                stats, lr_means: float | torch.Tensor, skip_all: bool | torch.Tensor,
+                skip_opac: bool | torch.Tensor, in_place: bool = False):
     """One grouped Adam update; a densify event skips every group, an
-    opacity reset the opacities."""
+    opacity reset the opacities. The flags and ``lr_means`` may be 0-d
+    tensors (the captured step's); ``in_place`` writes the update into the
+    tensors of ``model`` and ``adam``."""
     lrs = {
         "means": lr_means,
         "log_scales": cfg.log_scales_lr,
@@ -227,15 +250,22 @@ def _apply_adam(cfg: Config, model: GaussianModelState, adam: AdamState, grads,
         "sh_rest": cfg.sh_rest_lr,
         "logit_opacities": cfg.logit_opacities_lr,
     }
-    skips = {
-        name: (skip_all or skip_opac) if name == "logit_opacities" else skip_all
-        for name in ("means",) + LR_GROUPS
-    }
-    params_new, adam_new = adam_update(model.params, grads, adam, lrs, skips)
+    skips = {name: skip_all | skip_opac if name == "logit_opacities" else skip_all
+             for name in ("means",) + LR_GROUPS}
+    params_new, adam_new = adam_update(model.params, grads, adam, lrs, skips, in_place)
     return GaussianModelState(params=params_new, alive=model.alive, stats=stats), adam_new
 
 
 def make_train_step(cfg: Config, render_fn: Callable):
+    """The single-camera train step, run eagerly. ``lr_means`` and the three
+    flags may be numbers and bools on the host or 0-d tensors on the step's
+    device; either way the result is the same, bit for bit. On the card
+    ``train()`` runs this step through ``graphs.GraphedTrainStep``, one CUDA
+    graph per signature, with the flags as 0-d tensors and ``in_place``:
+    the new parameters, statistics and Adam state are written into the
+    given state's tensors (its donated buffers), the same bits as the new
+    tensors the step returns otherwise."""
+
     def train_step(
         model: GaussianModelState,
         adam: AdamState,
@@ -243,19 +273,20 @@ def make_train_step(cfg: Config, render_fn: Callable):
         K: torch.Tensor,
         image: torch.Tensor,
         mask: torch.Tensor,
-        lr_means: float,
-        do_stats: bool,  # inside the refine window
-        skip_all: bool,  # densify event this step
-        skip_opac: bool,  # opacity reset this step
+        lr_means: float | torch.Tensor,
+        do_stats: bool | torch.Tensor,  # inside the refine window
+        skip_all: bool | torch.Tensor,  # densify event this step
+        skip_opac: bool | torch.Tensor,  # opacity reset this step
         *,
         height: int,
         width: int,
         sh_degree: int,
+        in_place: bool = False,
     ):
         grads, ld, stats = _view_grads(cfg, render_fn, model, model.stats, w2c, K, image,
-                                       mask, do_stats, height, width, sh_degree)
+                                       mask, do_stats, height, width, sh_degree, in_place)
         model_new, adam_new = _apply_adam(cfg, model, adam, grads, stats, lr_means,
-                                          skip_all, skip_opac)
+                                          skip_all, skip_opac, in_place)
         return model_new, adam_new, ld
 
     return train_step
@@ -547,7 +578,21 @@ def train(
         return loop.model.capacity * n_gauss
 
     render_fn = get_render_fn(cfg)
-    train_step = make_train_step(cfg, render_fn)
+    # on the card with no mesh the step is a CUDA graph per signature
+    # (graphs.py); on the CPU, as asked, and under a mesh it runs eagerly
+    graphed = dev.type == "cuda" and mesh is None
+    train_step = None
+
+    def new_train_step() -> None:
+        """The step over the current ``render_fn`` (after a binning retune);
+        the old graph and its pool go first."""
+        nonlocal train_step
+        if graphed and train_step is not None:
+            train_step.reset()
+        train_step = (GraphedTrainStep(cfg, render_fn, dev) if graphed
+                      else make_train_step(cfg, render_fn))
+
+    new_train_step()
 
     # intersection-capacity watchdog for the tiled renderer: if the binned
     # count nears isect_mult * capacity, deep tiles would be truncated
@@ -591,7 +636,7 @@ def train(
         drives the per-row costs); the watchdog grows it if later frames
         need more. Also picks the small-population budget and overflow
         fraction with the smallest binning sort domain."""
-        nonlocal render_fn, train_step, isect_counter
+        nonlocal render_fn, isect_counter
         if isect_counter is None:
             return
         vals = count_isects(data)
@@ -618,7 +663,7 @@ def train(
             cfg.ov_frac = want_ov
             cfg.small_budget = want_b
             render_fn = get_render_fn(cfg)
-            train_step = make_train_step(cfg, render_fn)
+            new_train_step()
             isect_counter = _make_counter()
             evaluator.invalidate(render_fn)
 
@@ -627,7 +672,7 @@ def train(
         Fed from the train step's own binning (the 'isects' loss-dict
         channel) and once per densify event, right after the population
         jump (the JAX package counts just before the event)."""
-        nonlocal render_fn, train_step, overflow_steps
+        nonlocal render_fn, overflow_steps
         cap = cfg.isect_mult * capacity_now()
         if n > cap:
             overflow_steps += 1
@@ -650,11 +695,11 @@ def train(
             cfg.isect_mult = want_mult
             logger.info(f"intersections {n} near capacity {cap:.0f}: raising isect_mult to {cfg.isect_mult}")
             render_fn = get_render_fn(cfg)
-            train_step = make_train_step(cfg, render_fn)
+            new_train_step()
             evaluator.invalidate(render_fn)
 
     def check_isect_capacity(data):
-        nonlocal render_fn, train_step, isect_counter, autotuned
+        nonlocal render_fn, isect_counter, autotuned
         if isect_counter is None:
             return
         vals = count_isects(data)
@@ -674,7 +719,7 @@ def train(
             cfg.ov_frac = round(min(1.0, cfg.ov_frac * 2.0), 3)
             logger.info(f"{n_ov} overflow gaussians near capacity {ov_cap}: raising ov_frac to {cfg.ov_frac}")
             render_fn = get_render_fn(cfg)
-            train_step = make_train_step(cfg, render_fn)
+            new_train_step()
             isect_counter = _make_counter()
             evaluator.invalidate(render_fn)
         maybe_grow_isect_mult(n, loop.step)
@@ -747,6 +792,19 @@ def train(
                     tb_report(tb_writer, old_step, {"train/num_isects": n_isects})
                 maybe_grow_isect_mult(int(n_isects), old_step)
 
+    # wall-time buckets of the host loop (EGS_TORCH_LOOP_TIMING=1 logs them
+    # every 100 steps, per step): the JAX trainer's EGS_TPU_LOOP_TIMING
+    loop_timing = os.environ.get("EGS_TORCH_LOOP_TIMING") == "1"
+    buckets: Dict[str, float] = collections.defaultdict(float)
+    t_prev = time.perf_counter()
+
+    def _bucket(name: str) -> None:
+        nonlocal t_prev
+        if loop_timing:
+            now = time.perf_counter()
+            buckets[name] += now - t_prev
+            t_prev = now
+
     if frame_cache is not None:  # the same order as streaming's shuffle
         shuffled = list(range(scene.nbr_data("train")))
         random.shuffle(shuffled)
@@ -754,6 +812,7 @@ def train(
     else:
         data_iter = prefetch_frames(scene, "train", shuffle=True, num_workers=cfg.dataloader_workers)
     for data in data_iter:
+        _bucket("data")
         if loop.step >= cfg.total_iterations:
             # resumed runs start mid-schedule; the index tiling still spans
             # the full budget
@@ -798,6 +857,7 @@ def train(
                 means_lr(step), in_refine, densify_now, reset_now,
                 sh_degree=loop.active_sh_degree,
             )
+        _bucket("dispatch")
 
         log_now = (
             step == 1
@@ -808,6 +868,7 @@ def train(
         if log_now or step % 10 == 0:
             pending_losses.append((step, _PendingScalars(ld)))
             _drain_losses(min_pending=3)
+        _bucket("loss_sync")
 
         if step in save_iters and cfg.output is not None:
             model = full_state(loop.model)
@@ -818,6 +879,7 @@ def train(
                     model, loop.active_sh_degree, step, adam=adam,
                 )
             del model, adam
+        _bucket("ckpt")
 
         if scene.nbr_data("eval") > 0 and (step == 1 or step % cfg.eval_every == 0):
             # full single-device frames of the whole model, on rank 0
@@ -838,6 +900,7 @@ def train(
             del model
             if mesh is not None:
                 dist.barrier()
+        _bucket("eval")
 
         if densify_now:
             if gauss:
@@ -854,6 +917,7 @@ def train(
                 "large_scale": info["prune_large_scale"],
             }
             all_tb_info["train/nbr_gaussians"] = info["nbr_gaussians"]
+        _bucket("densify")
         if reset_now:
             loop.model, loop.adam = reset_opacities(loop.model, loop.adam, cfg.min_opacity)
 
@@ -863,12 +927,20 @@ def train(
         if tb_writer is not None and log_now:
             tb_report(tb_writer, step, all_tb_info)
 
+        _bucket("other")
         if step % 100 == 0:
             elapsed = time.time() - t_start
             logger.info(
                 f"step {step}/{cfg.total_iterations} loss={last_loss:.5f} "
                 f"({step / elapsed:.2f} it/s)"
             )
+            if loop_timing and buckets:
+                total = sum(buckets.values())
+                parts = " ".join(f"{k}={v * 1e3 / 100:.1f}ms" for k, v in
+                                 sorted(buckets.items(), key=lambda kv: -kv[1]))
+                logger.info(f"loop timing (per step over last 100): {parts} "
+                            f"total={total * 1e3 / 100:.1f}ms")
+                buckets.clear()
 
         if view_src is not None:
             view_src.active_sh_degree = loop.active_sh_degree
@@ -878,6 +950,8 @@ def train(
             viewer.update_render_image()
 
     _drain_losses(min_pending=0)
+    if graphed:
+        train_step.reset()  # the returned state is its buffers, which stay
     if profiler is not None:  # the run ended inside the window
         profiler.stop()
     if tb_writer is not None:

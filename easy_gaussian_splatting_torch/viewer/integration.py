@@ -1,14 +1,23 @@
 """Viewer <-> model integration; counterpart of
 ``easy_gaussian_splatting_tpu/viewer/integration.py``: load
-``cameras.json``, build the render closure the viewer serves, and build the
+``cameras.json``, build the render closure the viewer serves (a captured
+CUDA graph per frame size on the card, eager on the CPU), and build the
 training viewer (the closure over the loop's live state behind a
-``DelayRender`` mailbox)."""
+``DelayRender`` mailbox).
+
+The training viewer renders ``loop.model`` in the loop's own thread
+(``viewer.update_render_image()``, between steps): the model's tensors are
+the graphed train step's buffers, updated in place by each step, which
+the graphed render reads by reference (``donated``), and a frame rendered
+between two steps reads them whole. The HTTP threads only post requests
+to the mailbox."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
 import logging
+from collections import OrderedDict
 from pathlib import Path
 from typing import List
 
@@ -52,19 +61,136 @@ def capacity_scale(pixels: int, base_pixels: int) -> float:
     return max(min(1.0, ratio * 1.5 + 0.05), ratio)
 
 
+RENDER_GRAPHS = 8  # captured frame programs kept, as the JAX viewer's lru_cache(maxsize=8)
+
+
+class GraphedRender:
+    """The served render as CUDA graphs, the counterpart of the JAX viewer's
+    ``_jitted`` (``jax.jit`` per frame size and SH degree, an LRU of 8):
+    one captured render per ``(width, height, sh_degree, capacity,
+    isect_mult)``, least recently used dropped past ``RENDER_GRAPHS``.
+
+    Static inputs: each program's ``w2c`` and ``K`` buffers, the background
+    and one set of model tensors (params and ``alive``) that every program
+    reads; a model of another capacity drops the programs and gives a new
+    set. By default the set is the render's own: a clone of the first model
+    of a capacity, into which a model is copied unless it is the tensors
+    copied last, at the same versions (the offline viewer's model never
+    changes, so it is copied once). With ``donated`` the set is the first
+    model's own tensors, taken by reference, and a model whose tensors are
+    others is copied into it: the training viewer's (see
+    :func:`construct_training_viewer`), whose model, graphed, is the train
+    step's donated buffers, updated in place by each step with no version
+    change, so they are read where they are and nothing is copied.
+
+    After a replay the image is copied once into a pinned host buffer of
+    its size, read after an event, and returned as an array of its own (the
+    server may keep a frame past the next render). The programs share one
+    memory pool: that is safe because they replay one at a time on one
+    stream, each keeps its outputs alive (no capture places its temporaries
+    over them) and each frame is copied out before the next replay.
+    Captures happen on a CUDA device only; another device raises."""
+
+    def __init__(self, make_render_fn, background: torch.Tensor, donated: bool = False):
+        from ..training.graphs import require_cuda
+
+        self.device = require_cuda("GraphedRender", background.device)
+        self.make_render_fn = make_render_fn  # isect_mult -> render function
+        self.background = background
+        self.donated = donated
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(self.device)  # every capture's, as they share the pool
+        self.programs: OrderedDict = OrderedDict()
+        self.model: List[torch.Tensor] | None = None
+        self.source = None  # (data_ptr, version) of the tensors copied last
+        self.captures: List[dict] = []
+
+    def _take(self, model: List[torch.Tensor]) -> None:
+        """Make ``model``'s values the programs' model set."""
+        from ..training.graphs import copy_in
+
+        if self.model is None or self.model[0].shape != model[0].shape:
+            for prog in self.programs.values():
+                prog["program"].reset()
+            self.programs.clear()
+            self.model = model if self.donated else [t.detach().clone() for t in model]
+            self.source = None
+        source = [(t.data_ptr(), t._version) for t in model]
+        if self.donated or source != self.source:
+            copy_in(self.model, model)
+            self.source = source
+
+    def __call__(self, state, w2c, K, width: int, height: int, sh: int, mult):
+        """(image [H, W, 3] f32 on the host, intersection count or None)."""
+        from ..models.gaussians import PARAM_NAMES
+
+        self._take([getattr(state.params, n) for n in PARAM_NAMES] + [state.alive])
+        key = (width, height, sh, state.capacity, mult)
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self._capture(key, w2c, K)
+        else:
+            self.programs.move_to_end(key)
+        prog["w2c"].copy_(torch.as_tensor(np.asarray(w2c, np.float32)))
+        prog["K"].copy_(torch.as_tensor(np.asarray(K, np.float32)))
+        prog["program"].replay()
+        image, n = prog["program"].out
+        prog["host"].copy_(image, non_blocking=True)
+        if n is not None:
+            prog["host_n"].copy_(n, non_blocking=True)
+        prog["event"].record()
+        prog["event"].synchronize()
+        return prog["host"].numpy().copy(), None if n is None else int(prog["host_n"])
+
+    def _capture(self, key, w2c, K) -> dict:
+        from ..models.gaussians import PARAM_NAMES, GaussianParams
+        from ..models.render import CameraView
+        from ..training.graphs import Captured
+
+        width, height, sh, capacity, mult = key
+        rf = self.make_render_fn(mult)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        prog = dict(w2c=torch.as_tensor(np.asarray(w2c, np.float32), **f32),
+                    K=torch.as_tensor(np.asarray(K, np.float32), **f32))
+        params = GaussianParams(**dict(zip(PARAM_NAMES, self.model[:-1])))
+        camera = CameraView(w2c=prog["w2c"], K=prog["K"], width=width, height=height)
+
+        def frame():
+            out = rf(params, self.model[-1], camera, sh, self.background)
+            return out.image, out.num_isects
+
+        while len(self.programs) >= RENDER_GRAPHS:
+            self.programs.popitem(last=False)[1]["program"].reset()
+        p = Captured(frame, self.device, pool=self.pool, what="GraphedRender", stream=self.stream)
+        prog.update(program=p, event=torch.cuda.Event(),
+                    host=torch.empty((height, width, 3), dtype=torch.float32, pin_memory=True),
+                    host_n=torch.empty((), dtype=torch.int32, pin_memory=True))
+        self.programs[key] = prog
+        self.captures.append(dict(key=key, warmup_ms=p.warmup_ms, capture_ms=p.capture_ms,
+                                  pool_bytes=p.pool_bytes))
+        logger.info(
+            f"captured the {width}x{height} render (sh {sh}, capacity {capacity}, isect_mult "
+            f"{mult}) in {p.capture_ms:.1f} ms; pool {p.pool_bytes / 2**20:.1f} MiB"
+        )
+        return prog
+
+
 def make_gs_render_func(get_state, get_sh_degree, background, render_fn,
-                        cfg=None, base_pixels=None):
+                        cfg=None, base_pixels=None, donated: bool = False):
     """Render closure over model state; ``get_state`` / ``get_sh_degree``
-    are callables so the latest state is picked up.
+    are callables so the latest state is picked up. On a CUDA device (the
+    background's) each frame replays a captured render (:class:`GraphedRender`,
+    exposed as the closure's ``graphed``, reading the model by reference
+    when ``donated``); on the CPU it renders eagerly.
 
     With ``cfg`` + ``base_pixels`` (the offline viewer), the intersection
     capacity is sized per frame size: first by :func:`capacity_scale`,
     clamped to ``max_isect_cap``; a frame whose intersections exceed its
     capacity is rendered again with the capacity grown to 1.5x its count
-    (within ``max_isect_cap``), which that frame size keeps. Intersection
-    counts scale less than linearly at small sizes, where most Gaussians
-    cover one tile. Each frame's count, capacity and re-render count land
-    in the closure's ``stats``."""
+    (within ``max_isect_cap``), which that frame size keeps (a new key of
+    the graphed render). Intersection counts scale less than linearly at
+    small sizes, where most Gaussians cover one tile. Each frame's count,
+    capacity and re-render count land in the closure's ``stats``."""
     from ..models.render import CameraView
     from ..ops.rasterize_tiled import isect_capacity, max_isect_cap
     from ..training.trainer import get_render_fn
@@ -72,9 +198,26 @@ def make_gs_render_func(get_state, get_sh_degree, background, render_fn,
     tiled = cfg is not None and bool(base_pixels) and cfg.renderer == "tiled"
     mults = {}  # (width, height, capacity) -> isect_mult
 
-    def render(state, camera, sh, mult):
-        rf = get_render_fn(dataclasses.replace(cfg, isect_mult=mult)) if tiled else render_fn
-        return rf(state.params, state.alive, camera, sh, background)
+    def make_render_fn(mult):
+        return get_render_fn(dataclasses.replace(cfg, isect_mult=mult)) if tiled else render_fn
+
+    cuda = background.device.type == "cuda"
+    programs = GraphedRender(make_render_fn, background, donated) if cuda else None
+
+    def frame(state, camera_state, width, height, sh, mult):
+        """(host image, intersection count or None)."""
+        if programs is not None:
+            return programs(state, camera_state.w2c, camera_state.K, width, height, sh, mult)
+        device = state.params.means.device
+        camera = CameraView(
+            w2c=torch.as_tensor(camera_state.w2c, dtype=torch.float32, device=device),
+            K=torch.as_tensor(camera_state.K, dtype=torch.float32, device=device),
+            width=width,
+            height=height,
+        )
+        out = make_render_fn(mult)(state.params, state.alive, camera, sh, background)
+        n = None if out.num_isects is None else int(out.num_isects)
+        return out.image.cpu().numpy(), n
 
     @torch.no_grad()
     def gs_render_func(camera_state: CameraState) -> np.ndarray:
@@ -86,15 +229,8 @@ def make_gs_render_func(get_state, get_sh_degree, background, render_fn,
             # the camera moves
             sh = min(sh, int(cap))
         width, height = int(camera_state.width), int(camera_state.height)
-        device = state.params.means.device
-        camera = CameraView(
-            w2c=torch.as_tensor(camera_state.w2c, dtype=torch.float32, device=device),
-            K=torch.as_tensor(camera_state.K, dtype=torch.float32, device=device),
-            width=width,
-            height=height,
-        )
         if not tiled:
-            return render(state, camera, sh, None).image.cpu().numpy()
+            return frame(state, camera_state, width, height, sh, None)[0]
         key = (width, height, state.capacity)
         max_mult = max_isect_cap(cfg.isect_hbm_budget_mb) / state.capacity
         if key not in mults:
@@ -102,8 +238,7 @@ def make_gs_render_func(get_state, get_sh_degree, background, render_fn,
             mults[key] = min(max(0.25, cfg.isect_mult * scale), max_mult)
         retries = 0
         while True:
-            out = render(state, camera, sh, mults[key])
-            n = int(out.num_isects)
+            image, n = frame(state, camera_state, width, height, sh, mults[key])
             icap = isect_capacity(state.capacity, mults[key])
             grown = min(n * 1.5 / state.capacity, max_mult)
             if n <= icap or retries or grown <= mults[key]:
@@ -120,9 +255,10 @@ def make_gs_render_func(get_state, get_sh_degree, background, render_fn,
             width=width, height=height, num_isects=n, isect_cap=icap,
             rerenders=retries,
         )
-        return out.image.cpu().numpy()
+        return image
 
     gs_render_func.stats = {}
+    gs_render_func.graphed = programs
     return gs_render_func
 
 
@@ -132,7 +268,14 @@ def construct_training_viewer(loop, cfg, output_dir: Path, port: int = 9981) -> 
     to the mailbox the loop renders from). Unlike the JAX package's, the
     closure sizes the intersection capacity per frame size from the live
     ``cfg`` and renders a frame again when it overflows, as the offline
-    viewer does; ``port=0`` binds a free port (``Viewer.port``)."""
+    viewer does; ``port=0`` binds a free port (``Viewer.port``).
+
+    On the card the graphed render reads the loop's model by reference
+    (``donated``): graphed, that model is the train step's buffers, updated
+    in place; eager, each step's state is new. Either way the loop's state
+    only moves forward, so a newer state copied into the tensors the render
+    took first overwrites nothing the loop still reads (graphed, the step
+    copies the same values into its buffers at its next call)."""
     from ..training.trainer import get_render_fn
 
     camera_states = load_camera_states(output_dir)
@@ -151,6 +294,7 @@ def construct_training_viewer(loop, cfg, output_dir: Path, port: int = 9981) -> 
         get_render_fn(cfg),
         cfg=cfg,
         base_pixels=base_px,
+        donated=True,
     )
     return Viewer(
         render_func,

@@ -38,7 +38,7 @@ TRAINING_MODULES = (
     "models.density", "scene.scene", "utils.tb", "training.trainer",
     "scene.image_io", "scene.types", "scene.colmap", "scene.blender",
     "scene.device_cache", "native", "utils.synthetic", "utils.profiling",
-    "evaluation.metrics", "evaluation.lpips", "evaluation.evaluator",
+    "training.graphs", "evaluation.metrics", "evaluation.lpips", "evaluation.evaluator",
     "train", "eval", "validate_e2e", "viewer.integration", "utils.logging",
     "parallel", "parallel.mesh", "parallel.distributed", "parallel.collectives",
     "parallel.shard", "parallel.gauss_shard",

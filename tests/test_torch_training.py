@@ -379,6 +379,77 @@ def test_train_step_matches_jax(rng):
         assert int(ta.steps[k]) == int(ja.steps[k]) == 1
 
 
+# (do_stats, skip_all, skip_opac): the four inside the refine window, and a
+# step outside it
+STEP_FLAGS = [(True, False, False), (True, True, False), (True, False, True),
+              (True, True, True), (False, False, False)]
+_JAX_STEP = {}
+
+
+@pytest.mark.parametrize("flags", STEP_FLAGS)
+def test_train_step_with_traced_flags_matches_jax(rng, flags):
+    """The port's step with ``lr_means`` and the three flags as 0-d tensors
+    (the inputs of its captured program) against the JAX package's jitted
+    step with its flags traced (one program for every combination), at
+    ``test_train_step_matches_jax``'s tolerances, and bit for bit against
+    the port's step with host values. A skipped group keeps its parameter,
+    moments and step count in both packages; the statistics move only
+    inside the refine window."""
+    arrays, alive, w2c, K, image, mask = _scene_arrays(rng)
+    stats0 = {k: np.random.default_rng(i).uniform(0, 2, size=CAP).astype(np.float32)
+              for i, k in enumerate(("grad_norm_accum", "collecting_counts", "max_radii"))}
+    jcfg = jconfig.config_from_dict(CFG)
+    tcfg = tconfig.config_from_dict(CFG)
+    kw = dict(height=H, width=W, sh_degree=3)
+    if "step" not in _JAX_STEP:
+        _JAX_STEP["step"] = jtrainer.make_train_step(jcfg, jtrainer.get_render_fn(jcfg))
+    jstate = _jstate(arrays, alive, stats0)
+    jm, ja, jld = _JAX_STEP["step"](
+        jstate, jo.init_adam_state(jstate.params),
+        *(jnp.asarray(x) for x in (w2c, K, image, mask)),
+        np.float32(1e-3), *(np.bool_(f) for f in flags), **kw)
+    tstep = ttrainer.make_train_step(tcfg, ttrainer.get_render_fn(tcfg))
+    frame = [torch.as_tensor(x) for x in (w2c, K, image, mask)]
+    outs = []
+    for lr, fl in ((torch.tensor(1e-3), [torch.tensor(f) for f in flags]), (1e-3, list(flags))):
+        ts = _tstate(arrays, alive, stats0)
+        outs.append(tstep(ts, to.init_adam_state(ts.params), *frame, lr, *fl, **kw))
+    (tm, ta, tld), (hm, ha, hld) = outs
+    for k in NAMES:  # bit for bit against the host flags
+        for got, want in ((tm.params, hm.params), (ta.mu, ha.mu), (ta.nu, ha.nu)):
+            assert torch.equal(getattr(got, k), getattr(want, k)), k
+        assert torch.equal(ta.steps[k], ha.steps[k]), k
+    for k in ("grad_norm_accum", "collecting_counts", "max_radii"):
+        assert torch.equal(getattr(tm.stats, k), getattr(hm.stats, k)), k
+    assert set(tld) == set(hld) and all(torch.equal(tld[k], hld[k]) for k in tld)
+
+    do_stats, skip_all, skip_opac = flags
+    assert set(tld) == set(jld) and int(tld["isects"]) == int(jld["isects"])
+    for k in ("l1", "ssim", "total"):
+        np.testing.assert_allclose(float(tld[k]), float(jld[k]), rtol=1e-5, err_msg=k)
+    np.testing.assert_array_equal(_np(tm.stats.collecting_counts), _np(jm.stats.collecting_counts))
+    np.testing.assert_allclose(_np(tm.stats.max_radii), _np(jm.stats.max_radii), rtol=2e-7)
+    assert _rel_l2(_np(tm.stats.grad_norm_accum), _np(jm.stats.grad_norm_accum)) < 1e-3
+    if not do_stats:
+        for k, v in stats0.items():
+            np.testing.assert_array_equal(_np(getattr(tm.stats, k)), v, err_msg=k)
+    lrs = dict(means=1e-3, log_scales=tcfg.log_scales_lr, quats=tcfg.quats_lr,
+               sh_0=tcfg.sh_0_lr, sh_rest=tcfg.sh_rest_lr, logit_opacities=tcfg.logit_opacities_lr)
+    for k in NAMES:
+        a, b = _np(getattr(tm.params, k)), _np(getattr(jm.params, k))
+        skipped = skip_all or (skip_opac and k == "logit_opacities")
+        assert int(ta.steps[k]) == int(ja.steps[k]) == (0 if skipped else 1), k
+        if skipped:
+            np.testing.assert_array_equal(a, arrays[k], err_msg=k)
+            np.testing.assert_array_equal(b, arrays[k], err_msg=k)
+            np.testing.assert_array_equal(_np(getattr(ta.mu, k)), 0.0, err_msg=k)
+            continue
+        g = np.abs(_np(getattr(ta.mu, k))) / 0.1  # mu after one step is 0.1 * g
+        clear = g > 1e-3 * g.max()
+        assert clear.mean() > 0.5, k
+        np.testing.assert_allclose(a[clear], b[clear], rtol=0, atol=1e-6 + 1e-3 * lrs[k], err_msg=k)
+
+
 # ------------------------------------------------------------------ train
 class _OneCameraScene:
     """The JAX ``Scene``'s interface over one in-memory frame."""
