@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card (Hopper, sm_90a).
 
     python3 chip_smoke.py [--seed 0] [--gaussians 1000000] [--ab-parent DIR]
+    python3 chip_smoke.py --replay-probe RUNS   # the profiler's lost records
 
 Drives ``easy_gaussian_splatting_torch`` (never the JAX package) through
 its offline viewer, the first main path of the port:
@@ -169,7 +170,32 @@ phase 8's state and frames and the served model of phases 3-6):
    1280x720 and 320x180, graphed against eager: frames bit for bit equal,
    latency medians, re-renders, captures, and one graphed frame a size
    under the profiler (its kernels equal to the counters' increments);
-   (e) peak device memory of (a) and (d).
+   (e) peak device memory of (a) and (d);
+
+and then through the JAX package's other jitted programs as CUDA graphs
+(``training/graphs.py``), each against its eager version:
+
+18. (a) (after phase 14, on phase 8's state) phase 14's 10 batched steps
+   eager and through ``GraphedTrainStep`` over ``make_batched_train_step``
+   in turn, p c p c p c, every run bit for bit the first eager run's (each step's state
+   fingerprint and loss scalars, the final state); step medians, peak
+   memory above each run's start, and 3 steps of each under the profiler
+   (device busy, idle share, the kernels held to the launch counters);
+   (b) (after phase 15 (a), whose eval replays the evaluator's frame and
+   LPIPS programs) the same eval command with the evaluator eager: each
+   split's psnr, ssim, proxy LPIPS, largest intersection count and passes
+   again equal, FPS and latencies of both, and a replay of every program
+   of the graphed evaluators under the profiler; (c) on one NCCL rank (the
+   card's machine has one GPU; NCCL refuses two ranks on one device, so
+   capture across ranks is not measured here): the sharded step under
+   ``tiles:1``, ``gauss:1`` and ``gauss:1,tiles:1``, eager and graphed, 8
+   steps from phase 8's state at the capacity rung above its population
+   with a densify event that grows it (a second capture) and an opacity
+   reset, bit for bit, and 3 replays under the profiler (after phase 16
+   (a)); then (after phase 16 (b)) ``train(cfg)`` under ``tiles:1`` and
+   ``gauss:1`` on phase 13 (a)'s scene on one NCCL rank (graphed, its
+   replays profiled) against one gloo rank (eager, logged so): losses and
+   final state bit for bit.
 
 Then one JSON line of the seven kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
@@ -177,8 +203,10 @@ for the first four and that of its reduction in phase 11 for the other
 three, ``launches_served`` the viewer's build and requests of phase 5,
 ``launches_data_path`` the cached ``train(cfg)`` run of phase 13 (a),
 ``launches_batched`` phase 14's 10 timed batched steps,
-``launches_eval_cli`` phase 15's eval and ``launches_mesh`` rank 0's
-sharded calls and ``train()`` runs of phase 16.
+``launches_eval_cli`` phase 15's eval (graphed), ``launches_mesh`` rank
+0's sharded calls and ``train()`` runs of phase 16,
+``launches_batched_graphed`` phase 18 (a)'s graphed batched runs and
+``launches_mesh_graphed`` phase 18 (c)'s graphed ``train()`` runs.
 ``ms``, ``plain_ms``, ``bound_ms`` and ``max_abs_err`` come from the served
 800x800 frame for binkeys and tiled_forward, and from the first train
 step for the others; ``library_ms`` is null where no one PyTorch call
@@ -191,6 +219,7 @@ phase exits non-zero before it.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import io
 import json
@@ -199,6 +228,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 import urllib.request
 from pathlib import Path
 
@@ -635,6 +665,28 @@ def kernel_launches(prof) -> dict:
     return seen
 
 
+def device_records(prof) -> dict:
+    """Every device activity ``prof`` recorded (kernels, copies, memsets),
+    by name: its count."""
+    from torch.autograd import DeviceType
+
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+# profiler windows a measurement may take: the profiler loses device
+# records now and then (a run of them, up to a whole window), which the
+# program's graph and its other windows show ran (``--replay-probe``;
+# PERF.md), so a window that saw fewer of the port's kernels than the
+# counters, and none more, is measured again
+PROFILE_WINDOWS = 3
+
+
+def lost_records(seen: dict, counted: dict) -> bool:
+    """Whether a window that disagrees with the counters fell short only,
+    as a window that lost records does (never by a kernel more)."""
+    return seen != counted and all(seen[k] <= counted[k] for k in seen)
+
+
 def profiled(fn):
     """``fn()`` under ``torch.profiler`` (host and device activity), the
     card synchronized at both ends: (its result, the profile)."""
@@ -646,6 +698,24 @@ def profiled(fn):
         out = fn()
         torch.cuda.synchronize()
     return out, prof
+
+
+def profiled_launches(fn, tag: str, what: str):
+    """``fn()`` (work that can run again) under the profiler: the port's
+    kernels it saw equal to the counters' increments, or the run fails; a
+    window that lost records (:func:`lost_records`) is measured again, up
+    to ``PROFILE_WINDOWS`` windows. Returns (the result, the profile, the
+    kernels seen)."""
+    for _ in range(PROFILE_WINDOWS):
+        before = counts()
+        out, prof = profiled(fn)
+        seen = kernel_launches(prof)
+        counted = {k: v - before[k] for k, v in counts().items()}
+        if not lost_records(seen, counted):
+            break
+        log(f"[{tag}] {what}: the profiler lost records ({seen} of {counted}); measured again")
+    check_measured(tag, what, seen, counted)
+    return out, prof, seen
 
 
 def check_measured(tag: str, what: str, seen: dict, counted: dict) -> None:
@@ -666,18 +736,23 @@ def profile_device(fn, reps: int, what: str, tag: str, top: int = 14) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    before = counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(PROFILE_WINDOWS):  # a window that lost records is measured again
+        before = counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        seen = kernel_launches(prof)
+        counted = {k: v - before[k] for k, v in counts().items()}
+        if not lost_records(seen, counted):
+            break
+        log(f"[{tag}] {reps} {what}s profiled: the profiler lost records ({seen} of {counted}); "
+            "measured again")
     from torch.autograd import DeviceType
 
-    seen = kernel_launches(prof)
-    check_measured(tag, f"{reps} {what}s profiled", seen,
-                   {k: v - before[k] for k, v in counts().items()})
+    check_measured(tag, f"{reps} {what}s profiled", seen, counted)
     rows = [  # device-side events only (kernels, copies), not the host ops
         (e.self_device_time_total / 1e3, e.count, e.key)
         for e in prof.key_averages()
@@ -925,26 +1000,30 @@ PER_STEP = {"binkeys": 1, "tiled_forward": 1, "tiled_backward": 1, "segsum_band"
 
 
 def replays(step, model, height: int, width: int, sh_degree: int) -> bool:
-    """Whether a call of ``step`` (a ``GraphedTrainStep``) with ``model`` at
-    this frame size and SH degree replays a program it holds, capturing
-    none (read from its private state: a check of the smoke's own)."""
-    from easy_gaussian_splatting_torch.training.graphs import step_signature
+    """Whether a call of ``step`` (a ``GraphedTrainStep``, single or sharded)
+    with ``model`` at this frame size and SH degree replays a program it
+    holds, capturing none (read from its private state: a check of the
+    smoke's own)."""
+    from easy_gaussian_splatting_torch.training.graphs import graph_signature
 
-    sig = step_signature(step.cfg, model.capacity, height, width, sh_degree)
+    sig = graph_signature(step.cfg, model.capacity, height, width, sh_degree, mesh=step.mesh)
     return (step._state is not None and step._state[0].shape[0] == model.capacity
-            and sig in step._programs)
+            and sig in step._programs.entries)
 
 
-def train_recorded(cfg, scene, device, profile=()):
+def train_recorded(cfg, scene, device, profile=(), keep: bool = False):
     """The port's ``train()`` with each step timed (host clock between two
     synchronizes, and CUDA events through ``StepTimer`` in ``rec["timer"]``),
     its launches, loss, intersections and capacity recorded, and the
     densify and reset events counted. On the card the steps are the graphed
     step's (``rec["graphed"]`` holds each ``GraphedTrainStep`` built, with its
-    captures); under a mesh, the eager step's. A graphed step numbered in
+    captures), under an NCCL mesh too; under a gloo mesh, the eager sharded
+    step's (``make_mesh_train_step``). A graphed step numbered in
     ``profile`` that replays (captures nothing) runs under the profiler,
     outside its timing: the launches of each kernel it saw are the step's
-    ``measured`` (:func:`check_replays` holds them to the counters)."""
+    ``measured`` (:func:`check_replays` holds them to the counters). With
+    ``keep`` the graphed steps keep their programs when ``train()`` resets
+    them (at its end), for the caller to replay."""
     import torch
 
     from easy_gaussian_splatting_torch.ops.rasterize_tiled import isect_capacity
@@ -954,8 +1033,10 @@ def train_recorded(cfg, scene, device, profile=()):
     timer = StepTimer(device)
     rec = {"steps": [], "densify": 0, "reset": 0, "timer": timer, "graphed": []}
     make_orig = ttrainer.make_train_step
+    mesh_orig = ttrainer.make_mesh_train_step
     graphed_orig = ttrainer.GraphedTrainStep
     densify_orig = ttrainer.run_densify_with_growth
+    sharded_orig = ttrainer.run_sharded_densify_with_growth
     reset_orig = ttrainer.reset_opacities
 
     def timed(step, mult, graphed=None):
@@ -977,6 +1058,7 @@ def train_recorded(cfg, scene, device, profile=()):
                     graphed, model, k["height"], k["width"], k["sh_degree"]):
                 (out, st), prof = profiled(lambda: call(model, adam, *a, **k))
                 st["measured"] = kernel_launches(prof)
+                st["records"] = device_records(prof)
             else:
                 out, st = call(model, adam, *a, **k)
             ld = out[2]
@@ -989,27 +1071,42 @@ def train_recorded(cfg, scene, device, profile=()):
         return run
 
     def make(cfg_, render_fn):
-        return timed(make_orig(cfg_, render_fn), cfg_.isect_mult)
+        step = make_orig(cfg_, render_fn)
+        run = timed(step, cfg_.isect_mult)
+        run.step = step
+        return run
 
-    def make_graphed(cfg_, render_fn, dev):
-        with swapped(ttrainer, "make_train_step", make_orig):  # the step it captures
-            step = graphed_orig(cfg_, render_fn, dev)
+    def make_mesh(cfg_, mesh, render_fn):
+        step = mesh_orig(cfg_, mesh, render_fn)
+        run = timed(step, cfg_.isect_mult)
+        run.step = step
+        return run
+
+    def make_graphed(cfg_, step, dev, **kw):
+        # it captures the step itself: a timed one synchronizes
+        step = graphed_orig(cfg_, step.step, dev, **kw)
         rec["graphed"].append(step)
         run = timed(step, cfg_.isect_mult, step)
-        run.reset = step.reset
+        run.reset = (lambda: None) if keep else step.reset
         return run
 
     def densify(*a, **k):
         rec["densify"] += 1
         return densify_orig(*a, **k)
 
+    def sharded_densify(*a, **k):
+        rec["densify"] += 1
+        return sharded_orig(*a, **k)
+
     def reset(*a, **k):
         rec["reset"] += 1
         return reset_orig(*a, **k)
 
     with swapped(ttrainer, "make_train_step", make), \
+            swapped(ttrainer, "make_mesh_train_step", make_mesh), \
             swapped(ttrainer, "GraphedTrainStep", make_graphed), \
             swapped(ttrainer, "run_densify_with_growth", densify), \
+            swapped(ttrainer, "run_sharded_densify_with_growth", sharded_densify), \
             swapped(ttrainer, "reset_opacities", reset):
         loop = ttrainer.train(cfg, scene=scene, device=device)
     return loop, rec
@@ -1019,27 +1116,42 @@ def check_replays(tag: str, rec, per_step: dict) -> None:
     """The profiled replays of a ``train()`` run: in each, the kernels the
     profiler saw run equal the launch counters' increments (which a replay
     adds from its capture), and each kernel of ``per_step`` ran exactly
-    that many times; fails otherwise, or if no replay was profiled."""
+    that many times; fails otherwise, or if no replay was profiled. A
+    window that lost records is left out (and named), if no more than a
+    third of them did."""
     prof = [(i + 1, s) for i, s in enumerate(rec["steps"]) if "measured" in s]
     check(prof, f"[{tag}] no replayed step was profiled")
-    bad = [(n, s["measured"], s["launches"]) for n, s in prof
-           if s["measured"] != s["launches"]
-           or any(s["measured"][k] != v for k, v in per_step.items())]
+    # a step cannot run again: a window that lost records (fewer device
+    # records than most windows show, and none of the port's kernels more
+    # than the counters) is left out, the others held exactly
+    totals = [sum(s["records"].values()) for _, s in prof]
+    usual = collections.Counter(totals).most_common(1)[0][0]
+    lost = [(n, usual - t) for (n, s), t in zip(prof, totals)
+            if t < usual and lost_records(s["measured"], s["launches"])]
+    check(3 * len(lost) <= len(prof), f"[{tag}] the profiler lost records in {len(lost)} of "
+          f"{len(prof)} replayed steps: {lost}")
+    skip = {n for n, _ in lost}
+    bad = [(n, s["measured"], s["launches"]) for n, s in prof if n not in skip and (
+           s["measured"] != s["launches"]
+           or any(s["measured"][k] != v for k, v in per_step.items()))]
     check(not bad, f"[{tag}] replayed steps whose kernels (profiler) differ from the counters "
           f"or from one of each a step: {bad[:3]}")
+    prof = [(n, s) for n, s in prof if n not in skip]
     total = {k: sum(s["measured"][k] for _, s in prof) for k in prof[0][1]["measured"]}
     log(f"[{tag}] the profiler saw {len(prof)} replayed steps (steps "
         + " ".join(str(n) for n, _ in prof) + "): each ran "
         + ", ".join(f"{k} {v}" for k, v in per_step.items())
         + ", as the launch counters say; in all " + ", ".join(
-            f"{k} {v}" for k, v in total.items() if v))
+            f"{k} {v}" for k, v in total.items() if v)
+        + (f"; left out, the profiler having lost device records (step, records lost): {lost}"
+           if lost else ""))
 
 
 def log_captures(tag: str, rec) -> None:
     """Each capture of the graphed steps a ``train()`` run built."""
     caps = [c for g in rec["graphed"] for c in g.captures]
     log(f"[{tag}] graphed step: {len(caps)} captures (" + "; ".join(
-        f"capacity {c['signature'][0]}, sh {c['signature'][3]}, isect_mult {c['signature'][4]}: "
+        f"capacity {c['key'][0]}, sh {c['key'][3]}, isect_mult {c['key'][4]}: "
         f"warm-up {c['warmup_ms']:.1f} ms, capture {c['capture_ms']:.1f} ms, pool "
         f"{c['pool_bytes'] / 2**20:.0f} MiB" for c in caps) + ")")
 
@@ -1876,41 +1988,62 @@ VIEW_REQUEST = dict(yaw=0.6, pitch=0.3, radius=4.0, target=[0, 0, 0], fov=1.0,
                     width=1280, height=720)
 
 
-def eval_cli(run_dir: Path) -> dict:
+def eval_cli(run_dir: Path, eager: bool = False, tag: str = "15") -> dict:
     """Phase 15 (a): the port's eval command on phase 13 (a)'s run directory:
-    the binning tuned again, no truncated frame, finite metrics per split."""
+    the binning tuned again, no truncated frame, finite metrics per split.
+    The evaluator replays its frame and LPIPS programs (CUDA graphs); with
+    ``eager`` (phase 18 (b)) it renders eagerly instead. Returns the
+    launches, each split's metrics and the ``Evaluator``s built."""
     from easy_gaussian_splatting_torch import eval as teval
+    from easy_gaussian_splatting_torch.evaluation import evaluator as tev
     from easy_gaussian_splatting_torch.training import trainer as ttrainer
 
-    tuned = []
-    tune = ttrainer.tune_inference_cfg
+    tuned, evaluators, chains = [], [], {}
+    tune, evaluate, chain_ms = ttrainer.tune_inference_cfg, tev.Evaluator.evaluate, tev.Evaluator._chain_ms
 
     def record(cfg, *a, **k):
         out = tune(cfg, *a, **k)
         tuned.append(out.isect_mult)
         return out
 
+    def recorded(self, *a, **k):
+        evaluators.append(self)
+        return evaluate(self, *a, **k)
+
+    def chain_recorded(self, *a):
+        chains[id(self)] = (self, a)  # each evaluator's last latency chain
+        return chain_ms(self, *a)
+
     zero_counts()
     t0 = time.perf_counter()
-    with swapped(ttrainer, "tune_inference_cfg", record):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(swapped(ttrainer, "tune_inference_cfg", record))
+        stack.enter_context(swapped(tev.Evaluator, "evaluate", recorded))
+        stack.enter_context(swapped(tev.Evaluator, "_chain_ms", chain_recorded))
+        if eager:
+            stack.enter_context(swapped(tev.Evaluator, "_programs_on", lambda self, device: None))
         results = teval.main(["-p", str(run_dir), "--device", DEVICE])
     secs = time.perf_counter() - t0
     launches = counts()
     check(len(tuned) == 1 and set(results) == {"train", "eval"},
           f"eval: {len(tuned)} autotunes, splits {sorted(results)}")
+    check(all((ev._programs is None) == eager for ev in evaluators),
+          f"[{tag}] eval: the evaluator's programs are not what was asked (eager {eager})")
+    mode = "eager" if eager else "graphed"
     for split, m in results.items():
         vals = {k: m[k] for k in ("psnr", "ssim", "lpips_proxy", "fps", "latency_ms",
                                   "latency_device_ms")}
         check(all(math.isfinite(v) for v in vals.values()), f"eval {split}: {vals}")
         check(m["max_isects"] <= m["isect_cap"], f"eval {split}: a truncated frame")
-        log(f"[15] eval {split} split: " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+        log(f"[{tag}] eval ({mode}) {split} split: " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
             + f"; worst frame {m['max_isects']} intersections of capacity {m['isect_cap']}, "
             f"{m['rerenders']} passes again")
     check(launches["binkeys"] > 0 and launches["tiled_forward"] > 0, f"eval launched {launches}")
-    log(f"[15] eval: python -m easy_gaussian_splatting_torch.eval -p {run_dir.name} in "
+    log(f"[{tag}] eval ({mode}): python -m easy_gaussian_splatting_torch.eval -p {run_dir.name} in "
         f"{secs:.1f} s, autotuned isect_mult {tuned[0]}; launches binkeys {launches['binkeys']}, "
         f"tiled_forward {launches['tiled_forward']}")
-    return dict(launches=launches)
+    return dict(launches=launches, results=results, evaluators=evaluators,
+                chains=list(chains.values()), secs=secs)
 
 
 # the out-of-process client: posts the request every 16 ms until the server
@@ -2459,11 +2592,13 @@ def mesh_train_job(rank, scene_dir, out_dir, shape, seed):
 MESH_JOBS = {"grads": mesh_grads_job, "nccl": mesh_nccl_job, "train": mesh_train_job}
 
 
-def mesh_gradients(cfg8, state0, frame0, card: str) -> dict:
+def mesh_gradients(cfg8, state0, frames, card: str):
     """Phase 16 (a): phase 8's state and first frame, its binning tuned
     again for ``MESH_TILE``-pixel tiles, on ``MESH_WORLD`` gloo ranks sharing
     the card (each ``MESH_GRAD_MODES`` mode, then a ``gauss:2`` and a
-    ``tiles:2`` step), then on one NCCL rank (``tiles:1``)."""
+    ``tiles:2`` step), then on one NCCL rank (``tiles:1``). Returns rank 0's
+    launches and the file of the state and frames (phase 18 (c) reads it,
+    then removes it)."""
     import dataclasses
 
     import torch
@@ -2471,6 +2606,7 @@ def mesh_gradients(cfg8, state0, frame0, card: str) -> dict:
     from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES
     from easy_gaussian_splatting_torch.training.trainer import tune_inference_cfg
 
+    frame0 = frames[0]
     cfg = tune_inference_cfg(dataclasses.replace(cfg8, tile_size=MESH_TILE), state0,
                              frame0["w2c"], frame0["K"], 800, 800, margin=1.2)
     path = RUN_DIR / "mesh_state.pt"
@@ -2478,6 +2614,8 @@ def mesh_gradients(cfg8, state0, frame0, card: str) -> dict:
                     alive=state0.alive,
                     frame=[torch.as_tensor(frame0[k], device=DEVICE)
                            for k in ("w2c", "K", "image", "mask")],
+                    frames=[[torch.as_tensor(f[k], device=DEVICE)
+                             for k in ("w2c", "K", "image", "mask")] for f in frames[:2]],
                     binning=dict(tile_size=cfg.tile_size, isect_mult=cfg.isect_mult,
                                  small_budget=cfg.small_budget, ov_frac=cfg.ov_frac),
                     config_binning=dict(tile_size=cfg8.tile_size, isect_mult=cfg8.isect_mult,
@@ -2544,8 +2682,7 @@ def mesh_gradients(cfg8, state0, frame0, card: str) -> dict:
         + f"; peak {nccl['peak_mib']:.0f} MiB; collectives "
         + ", ".join(f"{k} {v}" for k, v in nccl["collectives"].items()))
     check(not differ, f"[16] tiles:1 on NCCL is not bit for bit: {differ}")
-    path.unlink()
-    return ranks[0]["launches"]
+    return ranks[0]["launches"], path
 
 
 def mesh_training(scene_dir: Path, cached_ms: float, card: str) -> dict:
@@ -2806,7 +2943,7 @@ def step_memory(cfg, state0, frames, device) -> None:
 
     model, adam = clone_state(state0, adam0)
     with swapped(graphs, "Captured", Probe):
-        step = graphs.GraphedTrainStep(cfg, render_fn, device)
+        step = graphs.GraphedTrainStep(cfg, ttrainer.make_train_step(cfg, render_fn), device)
         step(model, adam, *view, 1e-4, True, False, False, **kw)
     pool = step.captures[0]["pool_bytes"] / 2**20
     measure("replay", lambda: step(model, adam, *view, 1e-4, True, False, False, **kw))
@@ -2897,7 +3034,8 @@ def compiled_step(cfg8, state0, frames, serve, device, card: str) -> None:
         if mode == "eager":
             fn = eager_step
         elif mode == "graphed":
-            fn = graphed_step = GraphedTrainStep(cfg, render_fn, device)
+            fn = graphed_step = GraphedTrainStep(cfg, ttrainer.make_train_step(cfg, render_fn),
+                                                   device)
         else:
             fn = tensor_flags
         t0 = time.perf_counter()
@@ -2916,10 +3054,10 @@ def compiled_step(cfg8, state0, frames, serve, device, card: str) -> None:
             f"allocated, {peaks[mode + ' reserved'] / 2**20:.0f} MiB reserved; the peak rose after "
             + ", ".join(f"{what} ({(p - start[0]) / 2**20:.0f})" for what, p in rises))
     caps = graphed_step.captures
-    check(len(caps) >= 2 and len({c["signature"][0] for c in caps}) >= 2,
-          f"[17] (a) no capture after the capacity grew: {[c['signature'][0] for c in caps]}")
+    check(len(caps) >= 2 and len({c["key"][0] for c in caps}) >= 2,
+          f"[17] (a) no capture after the capacity grew: {[c['key'][0] for c in caps]}")
     log(f"[17] (a) {len(caps)} captures: " + "; ".join(
-        f"capacity {c['signature'][0]}: warm-up ({WARMUP_CALLS} calls) {c['warmup_ms']:.1f} ms, "
+        f"capacity {c['key'][0]}: warm-up ({WARMUP_CALLS} calls) {c['warmup_ms']:.1f} ms, "
         f"capture {c['capture_ms']:.1f} ms, pool {c['pool_bytes'] / 2**20:.0f} MiB" for c in caps))
     compare_runs("17", "(a) 40 steps of the phase-9 schedule", runs["eager"],
                  runs["eager, tensor flags"], "eager with tensor flags")
@@ -2932,14 +3070,15 @@ def compiled_step(cfg8, state0, frames, serve, device, card: str) -> None:
     adam0 = init_adam_state(state0.params)
     eager = mixed_run(ttrainer.make_train_step(cfg8, ttrainer.get_render_fn(cfg8)),
                       *clone_state(state0, adam0), frames, cfg8, device)
-    fn_g = GraphedTrainStep(cfg8, ttrainer.get_render_fn(cfg8), device)
+    fn_g = GraphedTrainStep(cfg8, ttrainer.make_train_step(cfg8, ttrainer.get_render_fn(cfg8)),
+                            device)
     graphed = mixed_run(fn_g, *clone_state(state0, adam0), frames, cfg8, device)
-    sizes = [c["signature"][1:3] for c in fn_g.captures]
+    sizes = [c["key"][1:3] for c in fn_g.captures]
     check(sizes == [(h, 800) for h in MIXED_HEIGHTS],
           f"[17] (a) frames of two sizes in turn captured {sizes}, want one capture a size")
     log(f"[17] (a) frames of two sizes in turn (800x800, 800x600), {MIXED_STEPS} steps: "
         f"{len(sizes)} captures ("
-        + "; ".join(f"{c['signature'][2]}x{c['signature'][1]}: capture {c['capture_ms']:.1f} ms, "
+        + "; ".join(f"{c['key'][2]}x{c['key'][1]}: capture {c['capture_ms']:.1f} ms, "
                     f"pool +{c['pool_bytes'] / 2**20:.0f} MiB" for c in fn_g.captures)
         + "); step ms eager " + " ".join(f"{x:.1f}" for x in eager[3])
         + ", graphed " + " ".join(f"{x:.1f}" for x in graphed[3]))
@@ -2957,7 +3096,8 @@ def compiled_step(cfg8, state0, frames, serve, device, card: str) -> None:
             fn_e = ttrainer.make_train_step(cfg8, ttrainer.get_render_fn(cfg8))
             eager = compiled_run(fn_e, *clone_state(state0, adam0), frames,
                                  cfg8, COMPILED_BASELINE_STEPS, False, device)
-            fn_g = GraphedTrainStep(cfg8, ttrainer.get_render_fn(cfg8), device)
+            fn_g = GraphedTrainStep(cfg8, ttrainer.make_train_step(cfg8, ttrainer.get_render_fn(cfg8)),
+                                    device)
             graphed = compiled_run(fn_g, *clone_state(state0, adam0), frames,
                                    cfg8, COMPILED_BASELINE_STEPS, False, device)
             cap = fn_g.captures[0]
@@ -2976,8 +3116,9 @@ def compiled_step(cfg8, state0, frames, serve, device, card: str) -> None:
     medians, replays, last = [], [], {}
     for i in range(2 * COMPILED_PAIRS):
         mode = ("eager", "graphed")[i % 2]
-        fn = (ttrainer.make_train_step(cfg8, render_fn) if mode == "eager"
-              else GraphedTrainStep(cfg8, render_fn, device))
+        fn = ttrainer.make_train_step(cfg8, render_fn)
+        if mode == "graphed":
+            fn = GraphedTrainStep(cfg8, fn, device)
         model, adam = clone_state(state0, adam0)
         step_ms, dispatch_ms = [], []
         for s in range(COMPILED_PAIR_STEPS):
@@ -3058,11 +3199,8 @@ def compiled_step(cfg8, state0, frames, serve, device, card: str) -> None:
                 t0 = time.perf_counter()
                 closures[g](cam)  # ends with the image on the host
                 times[g].append((time.perf_counter() - t0) * 1e3)
-        before = counts()
-        _, prof = profiled(lambda: closures[True](cam))
-        seen = kernel_launches(prof)
-        check_measured("17", f"(d) {name}: one graphed frame", seen,
-                       {k: v - before[k] for k, v in counts().items()})
+        _, _, seen = profiled_launches(lambda: closures[True](cam), "17",
+                                       f"(d) {name}: one graphed frame")
         st = closures[True].stats
         check(seen["binkeys"] == seen["tiled_forward"] == 1 + st["rerenders"],
               f"[17] (d) {name}: a graphed frame ran {seen}")
@@ -3090,7 +3228,520 @@ def compiled_step(cfg8, state0, frames, serve, device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 18
+# the JAX package's other jitted programs as CUDA graphs: the batched step,
+# the eval's frame and LPIPS, the sharded steps under NCCL (a world of one
+# rank: the card's machine has one GPU, and NCCL refuses two ranks on one)
+GRAPHED_PAIRS = 3  # (a): eager (p) and graphed (c) batched runs, p c p c p c
+MESH_GRAPH_SHAPES = ("tiles:1", "gauss:1", "gauss:1,tiles:1")
+MESH_GRAPH_STEPS = 8  # (c): steps a run, a densify event after step 4 and a reset after 6
+MESH_GRAPH_DENSIFY, MESH_GRAPH_RESET = 4, 6
+MESH_TRAIN_SHAPES = ("tiles:1", "gauss:1")
+# (c) train(cfg): MESH_SCHEDULE from the capacity rung just above 13a's 1M
+# sparse points, so that the densify event at step 15 grows it (a second
+# capture); the profiled replays: steps 3-8 and 17-20
+MESH_TRAIN_CAPACITY = 1_048_576
+MESH_TRAIN_PROFILED = set(range(3, 9)) | set(range(17, 21))
+
+
+def batched_graphed(cfg, state0, frames, device, card: str) -> dict:
+    """Phase 18 (a): phase 14's ``BATCH_STEPS`` batched steps, eager and
+    through ``GraphedTrainStep`` over ``make_batched_train_step`` in turn (p c p c p c),
+    each run from a clone of phase 8's state: every step's fingerprint and
+    loss scalars and the final state bit for bit equal to the first eager
+    run's; step medians (steps 2-10, host clock between synchronizes) and
+    peak device memory above each run's start; then 3 steps of each under
+    the profiler (device busy, idle share, the kernels seen held to the
+    launch counters). Returns the graphed runs' launches (this path's)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.models.optimizer import init_adam_state
+    from easy_gaussian_splatting_torch.training import trainer as ttrainer
+    from easy_gaussian_splatting_torch.training.graphs import GraphedTrainStep
+
+    views = [torch.stack([torch.as_tensor(f[k], device=device) for f in frames[:BATCH]])
+             for k in ("w2c", "K", "image", "mask")]
+    kw = dict(height=800, width=800, sh_degree=3)
+    lr = cfg.means_lr_init
+    render_fn = ttrainer.get_render_fn(cfg)
+    adam0 = init_adam_state(state0.params)
+    launches = dict.fromkeys(counts(), 0)
+    medians, peaks, captures, want, last = [], [], [], None, {}
+    for i in range(2 * GRAPHED_PAIRS):
+        mode = ("eager", "graphed")[i % 2]
+        fn = ttrainer.make_batched_train_step(cfg, render_fn)
+        if mode == "graphed":
+            fn = GraphedTrainStep(cfg, fn, device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        model, adam = clone_state(state0, adam0)
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        digests, losses, ms = [], [], []
+        for _ in range(BATCH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, adam, ld = fn(model, adam, *views, lr, True, False, False, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            digests.append(state_digest(model, adam, ld))
+            losses.append({k: float(v) for k, v in ld.items()})
+        torch.cuda.synchronize()
+        peaks.append((mode, (torch.cuda.max_memory_allocated() - start) / 2**20))
+        medians.append((mode, float(np.median(ms[1:]))))
+        run = (types.SimpleNamespace(model=model, adam=adam), torch.stack(digests).cpu().numpy(),
+               losses)
+        if mode == "graphed":
+            for k, v in counts().items():
+                launches[k] += v - before[k]
+            captures += fn.captures
+            compare_runs("18", f"(a) {BATCH_STEPS} batched steps, B = {BATCH}, run {i + 1}",
+                         want, run)
+        elif want is None:
+            want = run
+        if i >= 2 * GRAPHED_PAIRS - 2:  # the last pair is profiled below
+            last[mode] = (fn, model, adam)
+        elif mode == "graphed":
+            fn.reset()
+        del run, model, adam, fn
+    del want
+    prof = {}
+    for mode, (fn, model, adam) in last.items():
+        prof[mode] = profile_device(lambda: fn(model, adam, *views, lr, True, False, False, **kw),
+                                    3, "batched step", f"18 (a) {mode}", top=6)
+        if mode == "graphed":
+            fn.reset()
+    del last, fn, model, adam
+    torch.cuda.empty_cache()
+    pairs = [(medians[2 * j][1], medians[2 * j + 1][1]) for j in range(GRAPHED_PAIRS)]
+    log(f"[18] card: {card}")
+    log(f"[18] (a) batched step B = {BATCH}, 800x800: step medians (steps 2-{BATCH_STEPS}, host "
+        f"clock between synchronizes), p c p c p c: " + ", ".join(
+            f"{m} {x:.2f} ms" for m, x in medians)
+        + f"; graphed at or below eager in {sum(c <= p for p, c in pairs)} of {GRAPHED_PAIRS} pairs")
+    log("[18] (a) peak device memory above each run's start (its state included): " + ", ".join(
+        f"{m} {x:.0f} MiB" for m, x in peaks) + f"; {len(captures)} captures (" + "; ".join(
+        f"B {c['key'][-2]}, capacity {c['key'][0]}: warm-up {c['warmup_ms']:.1f} ms, "
+        f"capture {c['capture_ms']:.1f} ms, pool {c['pool_bytes'] / 2**20:.0f} MiB"
+        for c in captures) + ")")
+    for mode in ("eager", "graphed"):
+        p = prof[mode]
+        check(all(p["launches"][k] == 3 * BATCH * n for k, n in PER_STEP.items()),
+              f"[18] (a) the profiler did not see {BATCH} of each kernel a {mode} batched step: "
+              f"{p['launches']}")
+        log(f"[18] (a) {mode} batched step, 3 back to back: device busy {p['busy_ms']:.2f} "
+            f"ms/step, wall {p['wall_ms']:.2f} ms/step, idle share {p['idle_share']:.3f}")
+    check(all(launches[k] >= GRAPHED_PAIRS * BATCH_STEPS * BATCH for k in BATCH_KERNELS),
+          f"[18] (a) the graphed batched runs launched {launches}")
+    return dict(launches=launches, medians=medians)
+
+
+def eval_graphed(graphed: dict, run_dir: Path, card: str) -> None:
+    """Phase 18 (b): phase 15's eval (graphed: the evaluator's frame and
+    LPIPS programs) against the same command with the evaluator eager:
+    each split's psnr, ssim, proxy LPIPS, largest intersection count,
+    capacity and passes again equal; FPS and latencies of both; then a
+    replay of each program the graphed evaluators hold under the profiler
+    (its kernels held to the launch counters)."""
+    eager = eval_cli(run_dir, eager=True, tag="18 (b)")
+    log(f"[18] card: {card}")
+    for split in ("train", "eval"):
+        g, e = graphed["results"][split], eager["results"][split]
+        same = {k: g[k] == e[k] for k in ("psnr", "ssim", "lpips_proxy", "max_isects",
+                                           "isect_cap", "rerenders")}
+        lp = abs(g["lpips_proxy"] - e["lpips_proxy"]) / max(abs(e["lpips_proxy"]), 1e-30)
+        log(f"[18] (b) eval {split} split, graphed vs eager: "
+            + ", ".join(f"{k} {'equal' if v else 'DIFFERS'}" for k, v in same.items())
+            + f" (lpips_proxy relative difference {lp:.3e}); passes again {g['rerenders']}; fps "
+            f"graphed {g['fps']:.2f}, eager {e['fps']:.2f}; latency_ms graphed "
+            f"{g['latency_ms']:.2f}, eager {e['latency_ms']:.2f}; latency_device_ms graphed "
+            f"{g['latency_device_ms']:.2f}, eager {e['latency_device_ms']:.2f}")
+        check(all(v for k, v in same.items() if k != "lpips_proxy") and lp <= 1e-6,
+              f"[18] (b) eval {split}: the graphed metrics differ from the eager ones: {same}")
+    log(f"[18] (b) the command in {graphed['secs']:.1f} s graphed, {eager['secs']:.1f} s eager")
+    seen_frames = 0
+    for ev in graphed["evaluators"]:
+        for key, program in list(ev._programs.entries.items()):
+            _, _, seen = profiled_launches(program.replay, "18 (b)",
+                                           f"a replay of the eval's {key[0]} program {key[1:]}")
+            if key[0] == "frame":
+                check(seen["binkeys"] == seen["tiled_forward"] == 1,
+                      f"[18] (b) a replay of the eval's frame program ran {seen}")
+                seen_frames += 1
+        ev._programs.reset()
+    check(seen_frames == len(graphed["evaluators"]) >= 2,
+          f"[18] (b) {seen_frames} frame programs replayed under the profiler")
+    log(f"[18] (b) the profiler saw binkeys 1 and tiled_forward 1 in a replay of each of the "
+        f"{seen_frames} evaluators' frame programs, and in their LPIPS programs none of the port's "
+        f"kernels, as the launch counters say")
+    # the latency chain: captured (no launch) and replayed twice, each
+    # replay LATENCY_CHAIN renders
+    from easy_gaussian_splatting_torch.evaluation.evaluator import LATENCY_CHAIN
+
+    check(len(graphed["chains"]) == len(graphed["evaluators"]),
+          f"[18] (b) {len(graphed['chains'])} latency chains for "
+          f"{len(graphed['evaluators'])} evaluators")
+    for ev, args in graphed["chains"]:
+        _, _, seen = profiled_launches(lambda: ev._chain_ms(*args), "18 (b)",
+                                       "the latency chain (a capture and two replays)")
+        check(seen["binkeys"] == seen["tiled_forward"] == 2 * LATENCY_CHAIN,
+              f"[18] (b) the latency chain's two replays ran {seen}")
+    log(f"[18] (b) the profiler saw binkeys {2 * LATENCY_CHAIN} and tiled_forward "
+        f"{2 * LATENCY_CHAIN} in each of the {len(graphed['chains'])} latency chains (a capture "
+        "and two replays), as the launch counters say")
+
+
+def _mesh_graph_run(step_fn, model, adam, frames, cfg, mesh, device):
+    """``MESH_GRAPH_STEPS`` sharded steps over ``frames`` in turn with a
+    densify event (the trainer's growth logic: the sharded one under a gauss
+    axis) after step ``MESH_GRAPH_DENSIFY`` and an opacity reset after
+    ``MESH_GRAPH_RESET``: (loop, digests, losses, capacities, step ms)."""
+    import torch
+
+    from easy_gaussian_splatting_torch.models.density import reset_opacities
+    from easy_gaussian_splatting_torch.parallel import gauss_shard
+    from easy_gaussian_splatting_torch.parallel.mesh import GAUSS_AXIS
+    from easy_gaussian_splatting_torch.training import trainer as tt
+
+    loop = tt.TrainLoopState(model=model, adam=adam, active_sh_degree=3)
+    gen = torch.Generator(device=device).manual_seed(cfg.random_seed)
+    if GAUSS_AXIS in mesh.axis_names:
+        sharded = gauss_shard.make_sharded_densify_step(tt._dcfg(cfg), mesh)
+
+        def densify():
+            tt.run_sharded_densify_with_growth(loop, sharded, gen, cfg, mesh)
+    else:
+        plain = tt.make_densify_step(cfg)
+
+        def densify():
+            tt.run_densify_with_growth(loop, plain, gen, cfg)
+    digests, losses, caps, ms = [], [], [], []
+    for i in range(1, MESH_GRAPH_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.model, loop.adam, ld = step_fn(
+            loop.model, loop.adam, *frames[(i - 1) % len(frames)], cfg.means_lr_init / i, True,
+            i == MESH_GRAPH_DENSIFY, i == MESH_GRAPH_RESET, height=800, width=800, sh_degree=3)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        digests.append(state_digest(loop.model, loop.adam, ld))
+        losses.append({k: float(v) for k, v in ld.items()})
+        caps.append(loop.model.capacity)
+        if i == MESH_GRAPH_DENSIFY:
+            densify()
+        if i == MESH_GRAPH_RESET:
+            loop.model, loop.adam = reset_opacities(loop.model, loop.adam, cfg.min_opacity)
+    return loop, torch.stack(digests).cpu().numpy(), losses, caps, ms
+
+
+def mesh_graph_steps_job(rank, state_path):
+    """Phase 18 (c) on a world of one NCCL rank: under each of
+    ``MESH_GRAPH_SHAPES`` the sharded step eager (``make_mesh_train_step``)
+    and through ``GraphedTrainStep(..., mesh=)`` over it, from phase 8's state
+    compacted to the capacity rung above its population, so that the densify
+    event grows it (a second capture): whether every step's fingerprint and
+    loss scalars and the final state are equal bit for bit, the captures,
+    the collectives a replay adds, the step medians and a profile of 3
+    replays (its kernels held to the launch counters)."""
+    import dataclasses
+
+    import torch
+
+    from easy_gaussian_splatting_torch.models.gaussians import _round_up_capacity, compact_capacity
+    from easy_gaussian_splatting_torch.models.optimizer import init_adam_state
+    from easy_gaussian_splatting_torch.parallel import gauss_shard
+    from easy_gaussian_splatting_torch.parallel.mesh import GAUSS_AXIS, mesh_from_shape
+    from easy_gaussian_splatting_torch.training import trainer as tt
+    from easy_gaussian_splatting_torch.training.graphs import GraphedTrainStep, state_leaves
+
+    blob = torch.load(state_path, map_location=DEVICE)
+    cfg8, state, _ = _mesh_inputs(state_path)
+    cfg8 = dataclasses.replace(cfg8, **blob["config_binning"])
+    frames = blob["frames"]
+    small, _ = compact_capacity(state, _round_up_capacity(state.num_alive()))
+    del state
+    w2c0, K0 = (x.cpu().numpy() for x in frames[0][:2])
+    cfg = tt.tune_inference_cfg(dataclasses.replace(cfg8), small, w2c0, K0, 800, 800, margin=2.0)
+    res = {}
+    for shape in MESH_GRAPH_SHAPES:
+        mcfg = dataclasses.replace(cfg, mesh_shape=shape)
+        mesh = mesh_from_shape(shape, DEVICE)
+        gauss = GAUSS_AXIS in mesh.axis_names
+        render_fn = tt.get_render_fn(mcfg)
+        runs = {}
+        for mode in ("eager", "graphed"):
+            model, adam = clone_state(small, init_adam_state(small.params))
+            if gauss:
+                model = gauss_shard.shard_state(model, mesh)
+                adam = gauss_shard.shard_state(adam, mesh)
+            fn = tt.make_mesh_train_step(mcfg, mesh, render_fn)
+            if mode == "graphed":
+                fn = GraphedTrainStep(mcfg, fn, DEVICE, mesh=mesh)
+            runs[mode] = _mesh_graph_run(fn, model, adam, frames, mcfg, mesh, DEVICE) + (fn,)
+            del model, adam
+        (e_loop, e_dig, e_loss, e_caps, e_ms, _), (g_loop, g_dig, g_loss, g_caps, g_ms, graphed) = (
+            runs["eager"], runs["graphed"])
+        final = all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(
+            state_leaves(e_loop.model, e_loop.adam), state_leaves(g_loop.model, g_loop.adam)))
+        out = dict(steps=bool(e_dig.shape == g_dig.shape and (e_dig == g_dig).all()),
+                   losses=e_loss == g_loss, final=final, capacities=g_caps,
+                   eager_caps=e_caps, eager_ms=float(np.median(e_ms[1:MESH_GRAPH_DENSIFY])),
+                   graphed_ms=float(np.median(g_ms[1:MESH_GRAPH_DENSIFY])),
+                   captures=[(c["key"][0], c["warmup_ms"], c["capture_ms"],
+                              c["pool_bytes"] / 2**20) for c in graphed.captures],
+                   collectives={f"{n} ({b})": v for (n, b), v in
+                                sorted(graphed.program.collectives.items()) if v})
+        del runs, e_loop
+        torch.cuda.empty_cache()
+        model, adam = g_loop.model, g_loop.adam
+        out["profile"] = profile_device(
+            lambda: graphed(model, adam, *frames[0], cfg.means_lr_init, True, False, False,
+                            height=800, width=800, sh_degree=3),
+            3, "sharded step", f"18 (c) {shape} graphed", top=4)
+        graphed.reset()
+        del graphed, g_loop, model, adam
+        torch.cuda.empty_cache()
+        res[shape] = out
+    return res
+
+
+def mesh_graph_train_job(rank, scene_dir, out_dir, seed):
+    """Phase 18 (c) ``train(cfg)`` on a world of one rank under each of
+    ``MESH_TRAIN_SHAPES``: ``MESH_SCHEDULE`` from the capacity rung above
+    phase 13 (a)'s sparse points (the densify event grows it), each step's
+    loss, a digest of the final state (params, alive, Adam), the densify
+    events and captures, the trainer's "runs eagerly" lines, and on NCCL
+    the profiled replays held to the launch counters."""
+    import hashlib
+    import logging
+    import random
+
+    import torch
+    import torch.distributed as dist
+
+    from easy_gaussian_splatting_torch.training.config import load_config
+    from easy_gaussian_splatting_torch.training.graphs import state_leaves
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            if record.getMessage().startswith("the train step runs eagerly"):
+                self.lines.append(record.getMessage())
+
+    backend = str(dist.get_backend())
+    res = {}
+    for shape in MESH_TRAIN_SHAPES:
+        cfg = load_config(REPO / "configs" / "tandt_db.yaml", **MESH_SCHEDULE, data=scene_dir,
+                          output=str(Path(out_dir) / f"{backend}_{shape.replace(':', '')}"),
+                          mesh_shape=shape, initial_capacity=MESH_TRAIN_CAPACITY)
+        lines = Lines()
+        pkg = logging.getLogger("easy_gaussian_splatting_torch")
+        pkg.addHandler(lines)
+        pkg.setLevel(logging.INFO)
+        random.seed(seed)
+        np.random.seed(seed)
+        zero_counts()
+        try:
+            loop, rec = train_recorded(cfg, None, DEVICE, MESH_TRAIN_PROFILED)
+        finally:
+            pkg.removeHandler(lines)
+        launches = counts()
+        if backend == "nccl":
+            check(len(rec["graphed"]) >= 1, f"[18] (c) train() under {shape} on NCCL built no "
+                  "graphed step")
+            check_replays(f"18 (c) {shape}", rec, PER_STEP)
+            log_captures(f"18 (c) {shape}", rec)
+        digest = hashlib.sha256(b"".join(x.detach().cpu().numpy().tobytes()
+                                         for x in state_leaves(loop.model, loop.adam))).hexdigest()
+        res[shape] = dict(
+            losses=[st["loss"] for st in rec["steps"]], digest=digest, densify=rec["densify"],
+            capacity=loop.model.capacity, eager_lines=lines.lines, launches=launches,
+            captures=[(c["key"][0], c["capture_ms"]) for g in rec["graphed"]
+                      for c in g.captures],
+            step_ms=float(np.median([st["ms"] for st in rec["steps"][2:14]])))
+        del loop, rec
+        torch.cuda.empty_cache()
+    return res
+
+
+MESH_JOBS.update(graph_steps=mesh_graph_steps_job, graph_train=mesh_graph_train_job)
+
+
+def mesh_graph_steps(state_path: Path, card: str) -> None:
+    """Phase 18 (c), the steps: ``mesh_graph_steps_job`` on one NCCL rank."""
+    t0 = time.perf_counter()
+    res = spawn_ranks("graph_steps", 1, "nccl", dict(state_path=str(state_path)))[0]
+    log(f"[18] card: {card}; (c) one NCCL rank (NCCL refuses two ranks on one device: capture "
+        f"across two or more ranks is not measured here), {time.perf_counter() - t0:.1f} s")
+    for shape, r in res.items():
+        if isinstance(r, dict) and "steps" in r:
+            caps = r["captures"]
+            log(f"[18] (c) {shape}: {MESH_GRAPH_STEPS} steps, capacity {r['capacities'][0]} -> "
+                f"{r['capacities'][-1]}; graphed vs eager: every step's fingerprint "
+                f"{'equal' if r['steps'] else 'DIFFERS'}, loss scalars "
+                f"{'equal' if r['losses'] else 'DIFFER'}, final state "
+                f"{'equal' if r['final'] else 'DIFFERS'}; {len(caps)} captures (" + "; ".join(
+                    f"capacity {c}: warm-up {w:.1f} ms, capture {m:.1f} ms, pool {pool:.0f} MiB"
+                    for c, w, m, pool in caps)
+                + f"); a replay's collectives " + ", ".join(
+                    f"{k} {v}" for k, v in r["collectives"].items())
+                + f"; step medians (steps 2-{MESH_GRAPH_DENSIFY}) eager {r['eager_ms']:.2f} ms, "
+                f"graphed {r['graphed_ms']:.2f} ms; 3 replays: device busy "
+                f"{r['profile']['busy_ms']:.2f} ms/step, idle share {r['profile']['idle_share']:.3f}")
+            check(r["steps"] and r["losses"] and r["final"],
+                  f"[18] (c) {shape}: the graphed sharded step is not bit for bit the eager one")
+            check(len(caps) == 2 and caps[0][0] != caps[1][0] and r["capacities"] == r["eager_caps"],
+                  f"[18] (c) {shape}: captures {caps}, want one before and one after the growth")
+            check(all(r["profile"]["launches"][k] == 3 * n for k, n in PER_STEP.items()),
+                  f"[18] (c) {shape}: the profiler saw {r['profile']['launches']} in 3 replays")
+    state_path.unlink()
+
+
+def mesh_graph_training(scene_dir: Path, card: str) -> dict:
+    """Phase 18 (c), ``train(cfg)``: ``mesh_graph_train_job`` on one NCCL
+    rank (graphed) and on one gloo rank (eager, and logged so), each shape's
+    losses and final state equal bit for bit. Returns the NCCL run's
+    launches (this path's), summed over the shapes."""
+    out = RUN_DIR / "train18"
+    runs = {}
+    for backend in ("nccl", "gloo"):
+        t0 = time.perf_counter()
+        runs[backend] = spawn_ranks("graph_train", 1, backend, dict(
+            scene_dir=str(scene_dir), out_dir=str(out), seed=0))[0]
+        runs[backend]["secs"] = time.perf_counter() - t0
+    log(f"[18] card: {card}; (c) train(cfg), configs/tandt_db.yaml with "
+        + json.dumps(MESH_SCHEDULE) + f", initial_capacity {MESH_TRAIN_CAPACITY}: one NCCL rank "
+        f"({runs['nccl']['secs']:.1f} s) against one gloo rank ({runs['gloo']['secs']:.1f} s)")
+    launches = dict.fromkeys(counts(), 0)
+    for shape in MESH_TRAIN_SHAPES:
+        n, g = runs["nccl"][shape], runs["gloo"][shape]
+        same = n["losses"] == g["losses"] and n["digest"] == g["digest"]
+        log(f"[18] (c) train() under {shape}: NCCL (graphed, {len(n['captures'])} captures: "
+            + ", ".join(f"capacity {c} in {m:.1f} ms" for c, m in n["captures"])
+            + f") vs gloo (eager): losses and final state (params, alive, stats, Adam) "
+            + ("equal bit for bit" if same else "DIFFER") + f"; {n['densify']} densify event, "
+            f"capacity {MESH_TRAIN_CAPACITY} -> {n['capacity']}; step medians (steps 3-14) NCCL "
+            f"{n['step_ms']:.2f} ms, gloo {g['step_ms']:.2f} ms; the gloo run logged: "
+            + " | ".join(g["eager_lines"]))
+        check(same, f"[18] (c) train() under {shape}: NCCL graphed and gloo eager differ")
+        check(len(n["captures"]) >= 2 and n["capacity"] > MESH_TRAIN_CAPACITY and n["densify"] == 1,
+              f"[18] (c) train() under {shape}: captures {n['captures']}, capacity {n['capacity']}")
+        check(not n["eager_lines"] and len(g["eager_lines"]) == 1
+              and "gloo collectives" in g["eager_lines"][0],
+              f"[18] (c) train() under {shape}: eager lines NCCL {n['eager_lines']}, gloo "
+              f"{g['eager_lines']}")
+        for k in launches:
+            launches[k] += n["launches"][k]
+    check(all(launches[k] > 0 for k in MESH_KERNELS),
+          f"[18] (c) a main-path kernel never launched under the graphed mesh: {launches}")
+    return launches
+
+
 # ------------------------------------------------------------------ main
+REPLAY_PROBE_WINDOWS = 200  # profiled replays of the last program after the probe's runs
+PROBE_DIR = REPO / "build" / "replay_probe"  # what --replay-probe writes (kept after the run)
+
+
+def replay_probe(runs: int, gaussians: int, seed: int, device, card: str) -> None:
+    """``--replay-probe RUNS``: whether a profiled replay whose kernels fall
+    short of the launch counters ran fewer kernels or the profiler lost
+    their records. Phase 13 (a)'s ``train()`` (its scene, schedule, evals
+    and profiler window) ``RUNS`` times, every replayed step under the
+    profiler and every CUDA graph in debug mode; then
+    ``REPLAY_PROBE_WINDOWS`` replays of the last run's program, each in a
+    profiler window of its own, every other one after a small kernel run
+    and waited for inside the window ("settled"). Per
+    window: the port's kernels seen against the counters' increments and
+    every device record seen against the window most windows show; the
+    program's nodes of the port's kernels from its debug dump. The windows
+    that differ go to ``PROBE_DIR/replay_probe.json``, the dump beside it."""
+    import re
+
+    import torch
+
+    from easy_gaussian_splatting_torch.training.config import load_config
+    from easy_gaussian_splatting_torch.utils.synthetic import generate_colmap_scene
+
+    class DebugGraph(torch.cuda.CUDAGraph):
+        # the graph kept (keep_graph, an argument of both __new__ and the
+        # binding's __init__) and debug mode on: debug_dump needs both
+        def __new__(cls):
+            return super().__new__(cls, True)
+
+        def __init__(self):
+            super().__init__(True)
+            self.enable_debug_mode()
+
+    scene_dir = RUN_DIR / "colmap_800"
+    generate_colmap_scene(scene_dir, n_images=24, image_size=800, n_gaussians=20000,
+                          n_points=gaussians, sh_degree=3, seed=seed, gt_renderer="tiled",
+                          device=device)
+    windows = []  # (where, measured, counted, records)
+    with swapped(torch.cuda, "CUDAGraph", DebugGraph):
+        for r in range(runs):
+            cfg = load_config(REPO / "configs" / "tandt_db.yaml", **DATA_SCHEDULE,
+                              data=str(scene_dir), output=str(RUN_DIR / f"probe{r}"))
+            zero_counts()
+            # every step but those of train()'s own profiler window (from step 10)
+            loop, rec = train_recorded(cfg, None, device,
+                                       set(range(1, cfg.total_iterations + 1)) - set(range(8, 18)),
+                                       keep=r == runs - 1)
+            windows += [(f"run {r} step {n}", s["measured"], s["launches"], s["records"])
+                        for n, s in enumerate(rec["steps"], 1) if "measured" in s]
+        program = rec["graphed"][-1].program
+        dump = RUN_DIR / "probe_graph.dot"
+        program.graph.debug_dump(str(dump))
+        text = dump.read_text() if dump.exists() else ""
+        PROBE_DIR.mkdir(parents=True, exist_ok=True)
+        if text:
+            shutil.copy(dump, PROBE_DIR / "replay_probe_graph.dot")
+        # a node's function is its mangled name: ..._14binkeys_kernelEPKf...
+        nodes = {name: len(re.findall(rf"\d{sym}E", text)) for name, sym in KERNEL_SYMBOLS.items()}
+        log(f"[probe] the last program's debug dump: {len(text)} bytes, "
+            f"{text.count('label="{KERNEL')} kernel nodes, {text.count('label="{MEMSET')} memset "
+            "nodes; the port's kernels among them " + ", ".join(
+                f"{k} {v}" for k, v in nodes.items() if v))
+        def settled():
+            torch.ones(1, device=device).add_(1)
+            torch.cuda.synchronize()
+            program.replay()
+
+        for i in range(REPLAY_PROBE_WINDOWS):
+            before = counts()
+            _, prof = profiled(settled if i % 2 else program.replay)
+            windows.append((f"replay {i}" + (" settled" if i % 2 else ""),
+                            kernel_launches(prof), {k: v - before[k] for k, v in counts().items()},
+                            device_records(prof)))
+        rec["graphed"][-1].reset()
+        del loop, rec, program
+    groups = collections.defaultdict(list)
+    for w in windows:
+        groups[w[0].split(" ")[0] + (" settled" if "settled" in w[0] else "")].append(w)
+    out = {"card": card, "kernel_nodes": nodes, "groups": {}}
+    for name, ws in groups.items():
+        common = collections.Counter(json.dumps(w[3], sort_keys=True) for w in ws).most_common(1)[0]
+        mode = json.loads(common[0])
+        short = [w for w in ws if w[1] != w[2]]
+        odd = [dict(window=w[0], measured=w[1], counted=w[2],
+                    missing={k: v - w[3].get(k, 0) for k, v in mode.items() if w[3].get(k, 0) < v},
+                    extra={k: v - mode.get(k, 0) for k, v in w[3].items() if v > mode.get(k, 0)})
+               for w in ws if json.dumps(w[3], sort_keys=True) != common[0]]
+        out["groups"][name] = dict(windows=len(ws), common=common[1], short=len(short), odd=odd)
+        log(f"[probe] {name}: {len(ws)} profiled windows, {common[1]} with the most common device "
+            f"records ({sum(mode.values())} in all), {len(odd)} with others, {len(short)} with a "
+            "port kernel fewer than the counters; " + "; ".join(
+                f"{o['window']}: missing {sum(o['missing'].values())} ("
+                + ", ".join(f"{k[:48]} {v}" for k, v in list(o["missing"].items())[:4])
+                + f"), extra {sum(o['extra'].values())}" for o in odd[:8]))
+    path = PROBE_DIR / "replay_probe.json"
+    path.write_text(json.dumps(out, indent=1))
+    log(f"[probe] card: {card}; every window that differs: {path.relative_to(REPO)}")
+
+
 def http(port: int, path: str, payload=None):
     url = f"http://localhost:{port}{path}"
     data = None if payload is None else json.dumps(payload).encode()
@@ -3134,6 +3785,9 @@ def run(args) -> dict:
         for line in report.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"[2] ptxas {name}: {line.strip()}")
+    if args.replay_probe:
+        replay_probe(args.replay_probe, args.gaussians, args.seed, device, card)
+        return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}
 
     t0 = time.perf_counter()
     shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -3447,10 +4101,15 @@ def run(args) -> dict:
     del band_step, grad_fn, post_args
     torch.cuda.empty_cache()
     batched = batched_step(cfg8, state0, frames, float(np.median(step_ms)), device, card)
-
-    # ---- phase 16 (a): the mesh's gradients and steps on phase 8's state
+    # ---- phase 18 (a): the batched step graphed against eager
     torch.cuda.empty_cache()
-    mesh_launches = mesh_gradients(cfg8, state0, frames[0], card)
+    batched_g = batched_graphed(cfg8, state0, frames, device, card)
+
+    # ---- phase 16 (a): the mesh's gradients and steps on phase 8's state,
+    # then phase 18 (c)'s graphed sharded steps on one NCCL rank
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_state = mesh_gradients(cfg8, state0, frames, card)
+    mesh_graph_steps(mesh_state, card)
 
     # ---- phase 17: the compiled step and the graphed served render against
     # their eager versions (phase 8's state and frames; the served model)
@@ -3479,6 +4138,10 @@ def run(args) -> dict:
     # then training with the viewer on its scene (13 (b) ran the e2e script)
     torch.cuda.empty_cache()
     eval_run = eval_cli(RUN_DIR / "train13")
+    # ---- phase 18 (b): that eval against the same command with the
+    # evaluator eager
+    eval_graphed(eval_run, RUN_DIR / "train13", card)
+    del eval_run["evaluators"], eval_run["chains"]
     for client in (ThreadClient, ProcessClient):
         view_online(scene_dir, RUN_DIR / f"train15_{client.__name__}", data_run["step_ms"],
                     device, card, client)
@@ -3489,6 +4152,10 @@ def run(args) -> dict:
         mesh_launches[k] += v
     check(all(mesh_launches[k] > 0 for k in MESH_KERNELS),
           f"[16] a main-path kernel never launched under the mesh: {mesh_launches}")
+    # ---- phase 18 (c): train(cfg) on one NCCL rank, graphed, against one
+    # gloo rank, eager
+    torch.cuda.empty_cache()
+    mesh_graphed = mesh_graph_training(scene_dir, card)
 
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
@@ -3506,7 +4173,9 @@ def run(args) -> dict:
              launches_data_path=data_run["launches"][name],
              launches_batched=batched["launches"][name],
              launches_eval_cli=eval_run["launches"][name],
-             launches_mesh=mesh_launches[name], max_abs_err=err,
+             launches_mesh=mesh_launches[name],
+             launches_batched_graphed=batched_g["launches"][name],
+             launches_mesh_graphed=mesh_graphed[name], max_abs_err=err,
              ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
         for name, (src, tpu, err, ms, plain, bound, by) in measured.items()
     ]
@@ -3522,7 +4191,9 @@ def run(args) -> dict:
             launches_data_path=data_run["launches"][name],
             launches_batched=batched["launches"][name],
             launches_eval_cli=eval_run["launches"][name],
-            launches_mesh=mesh_launches[name], max_abs_err=reduce_errs[name],
+            launches_mesh=mesh_launches[name],
+            launches_batched_graphed=batched_g["launches"][name],
+            launches_mesh_graphed=mesh_graphed[name], max_abs_err=reduce_errs[name],
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -3537,6 +4208,10 @@ def main(argv=None) -> int:
                         help="another checkout (the parent commit): time its tiled_forward, "
                              "tiled_backward, group_reduce, binkeys and segsum_compact beside this tree's on the "
                              "same inputs (phase 12)")
+    parser.add_argument("--replay-probe", type=int, metavar="RUNS", default=0,
+                        help="after the build, only phase 13 (a)'s train() RUNS times with every "
+                             "replay profiled, then profiled replays of its last program: which "
+                             "device records each profiler window lost (no other phase runs)")
     args = parser.parse_args(argv)
     try:
         import torch

@@ -34,8 +34,10 @@ logger = logging.getLogger(__name__)
 class CountingRender:
     """A render function that keeps each frame's intersection count on the
     device (no synchronisation), so a split's overflow is read once, after
-    its evaluation. Renders captured into a CUDA graph are not counted:
-    nothing runs while the graph is captured."""
+    its evaluation. An eager render counts itself; a render captured into a
+    CUDA graph does not (nothing runs while the graph is captured), and a
+    replay runs no Python, so the ``Evaluator`` hands over the count output
+    of each frame its program replays (``record``)."""
 
     def __init__(self, render_fn):
         self.render_fn = render_fn
@@ -47,6 +49,10 @@ class CountingRender:
         if n is not None and not (n.is_cuda and torch.cuda.is_current_stream_capturing()):
             self.counts.append(n)
         return out
+
+    def record(self, n: torch.Tensor) -> None:
+        """A replayed frame's count (a copy of its program's output)."""
+        self.counts.append(n)
 
 
 def evaluate_split(cfg, scene, split: str, state, sh_degree: int, background, cache=None

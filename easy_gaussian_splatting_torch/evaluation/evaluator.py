@@ -8,11 +8,28 @@ drawn with Python's ``random`` are kept as GT|render side-by-side images.
 Keys, as the JAX evaluator's: ``psnr``, ``ssim``, ``lpips`` or
 ``lpips_proxy``, ``render_<k>``, ``fps`` (frames dispatched back to back,
 one synchronisation at the end), ``latency_ms`` (median of three blocking
-single renders on the host clock) and ``latency_device_ms`` (one render's
-device time: the replay of a chain of renders captured in a CUDA graph,
+single frames on the host clock, each the whole frame, render to SSIM,
+and its PSNR read back) and ``latency_device_ms`` (one render's device
+time: the replay of a chain of renders captured in a CUDA graph,
 between two CUDA events, where the JAX package differences two on-device
 loop lengths to cancel a remote link's fixed cost; the host clock on the
 CPU).
+
+On the card the frame is a compiled program, as the JAX evaluator jits
+it: one CUDA graph per ``(height, width, sh_degree, capacity)`` (render,
+``composite_mask``, ``psnr``, ``ssim`` and the frame's intersection
+count), and LPIPS one per image size, all in one ``graphs.Programs``
+(``EVAL_GRAPHS``, one pool, one capture stream), replayed through
+``Programs.run``. Each frame's camera, image and mask are copied into the
+program's buffers, and its outputs out of them before the next replay (the scalars, the composite for LPIPS, the
+kept render, the count). The programs read a model set of their own: a
+clone of the model, into which each ``evaluate`` copies the model it is
+given. The frame's capture and its warm-up replay happen before the FPS
+window opens; ``latency_ms`` times a blocking replay (the JAX evaluator
+times its jitted frame). A render function with a ``record`` method
+(``eval.CountingRender``) is handed each replayed frame's count, the only
+place it can come from: a replay runs no Python. On the CPU the same
+operations run eagerly.
 """
 
 from __future__ import annotations
@@ -33,6 +50,15 @@ from .metrics import psnr, ssim
 logger = logging.getLogger(__name__)
 
 LATENCY_CHAIN = 6  # renders between the two events of latency_device_ms
+EVAL_GRAPHS = 4  # frame and LPIPS programs kept, least recent dropped
+_FRAME = ("w2c", "K", "image", "mask")
+
+
+def _describe(key: tuple) -> str:
+    """A program's key in its capture's log line."""
+    if key[0] == "frame":
+        return f"frame, {key[2]}x{key[1]}, sh {key[3]}, capacity {key[4]}"
+    return f"LPIPS, {key[2]}x{key[1]}"
 
 
 def _sync(device: torch.device) -> None:
@@ -45,17 +71,80 @@ class Evaluator:
         self.eval_render_num = eval_render_num
         self.render_fn = render_fn
         self.lpips = get_lpips()  # "vgg" (pretrained) or "proxy" (seeded)
+        self._programs = None  # graphs.Programs, made at the first evaluate on the card
+        self._model = None  # the programs' model set: params in PARAM_NAMES order, then alive
 
     def invalidate(self, render_fn: Callable | None = None) -> None:
         """Swap in the trainer's rebuilt render function (after a capacity
-        autotune or growth)."""
+        autotune or growth); the programs captured over the old one go."""
         if render_fn is not None:
             self.render_fn = render_fn
+        if self._programs is not None:
+            self._programs.reset()
 
-    def _render(self, model, data, sh_degree, background) -> torch.Tensor:
+    def _programs_on(self, device: torch.device):
+        """The programs on ``device``: a ``graphs.Programs`` on the card,
+        None (eager) elsewhere."""
+        if device.type != "cuda":
+            return None
+        if self._programs is None:
+            from ..training.graphs import Programs
+
+            self._programs = Programs(device, EVAL_GRAPHS, "the eval's program", _describe)
+        return self._programs
+
+    def _render_out(self, model, data, sh_degree, background):
         camera = CameraView(w2c=data["w2c"], K=data["K"], width=data["width"],
                             height=data["height"])
-        return self.render_fn(model.params, model.alive, camera, sh_degree, background, None).image
+        return self.render_fn(model.params, model.alive, camera, sh_degree, background, None)
+
+    def _render(self, model, data, sh_degree, background) -> torch.Tensor:
+        return self._render_out(model, data, sh_degree, background).image
+
+    def _frame(self, model, data, sh_degree, background):
+        """One eval frame: (render, composite, psnr, ssim, intersection count
+        or None)."""
+        out = self._render_out(model, data, sh_degree, background)
+        comp = composite_mask(out.image, data["image"], data["mask"])
+        return out.image, comp, psnr(comp, data["image"]), ssim(data["image"], comp), out.num_isects
+
+    def _take(self, model):
+        """``model``'s params and alive copied into the programs' model set
+        (a new set, and no programs, for another capacity); the set as a
+        model."""
+        from types import SimpleNamespace
+
+        from ..models.gaussians import PARAM_NAMES, GaussianParams
+        from ..training.graphs import copy_in
+
+        leaves = [getattr(model.params, n) for n in PARAM_NAMES] + [model.alive]
+        if self._model is None or self._model[0].shape != leaves[0].shape:
+            self._programs.reset()
+            self._model = [t.detach().clone() for t in leaves]
+        copy_in(self._model, leaves)
+        return SimpleNamespace(params=GaussianParams(**dict(zip(PARAM_NAMES, self._model[:-1]))),
+                               alive=self._model[-1])
+
+    def _frame_program(self, model_set, data, sh_degree, background):
+        """The captured frame of ``data``'s size over ``model_set``, replayed
+        on ``data``'s camera, image and mask (and ``background``)."""
+        width, height = data["width"], data["height"]
+
+        def frame(bufs):
+            return self._frame(model_set, dict(zip(_FRAME, bufs), width=width, height=height),
+                               sh_degree, bufs[-1])
+
+        key = ("frame", height, width, sh_degree, model_set.alive.shape[0])
+        return self._programs.run(key, frame, [data[k] for k in _FRAME] + [background])
+
+    def _lpips(self, comp: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        """LPIPS of a pair: eager, or on the card the replay of the program
+        of its image size (the result copied out)."""
+        programs = self._programs_on(comp.device)
+        if programs is None:
+            return self.lpips.device_fn(comp, gt)
+        key = ("lpips",) + tuple(comp.shape)
+        return programs.run(key, lambda bufs: self.lpips.device_fn(*bufs), (comp, gt)).out.clone()
 
     @torch.no_grad()
     def evaluate(
@@ -71,6 +160,8 @@ class Evaluator:
         from ..scene.scene import prefetch_frames
 
         device = background.device
+        programs = self._programs_on(device)
+        record = getattr(self.render_fn, "record", None)
         n = scene.nbr_data(split)
         lpips_key = "lpips" if self.lpips.kind == "vgg" else "lpips_proxy"
         metrics: Dict[str, Any] = {"psnr": 0.0, "ssim": 0.0, lpips_key: 0.0}
@@ -80,22 +171,35 @@ class Evaluator:
         psnrs, ssims, lpips_pairs, renders = [], [], [], []
         t0 = None
         last = None
+        model_set = None if programs is None else self._take(model)
         if cache is not None:  # device-resident split: no copies inside the FPS window
             frames_iter = (cache.get(i) for i in range(n))
         else:
             frames_iter = prefetch_frames(scene, split, num_workers=num_workers)
         for i, data in enumerate(frames_iter):
             data = dict(data)
-            for k in ("w2c", "K", "image", "mask"):
+            for k in _FRAME:
                 data[k] = torch.as_tensor(data[k], dtype=torch.float32, device=device)
-            if i == 0:  # warm-up outside the FPS window
-                self._render(model, data, sh_degree, background)
-                _sync(device)
-                t0 = time.perf_counter()
-            img = self._render(model, data, sh_degree, background)
-            comp = composite_mask(img, data["image"], data["mask"])
-            psnrs.append(psnr(comp, data["image"]))
-            ssims.append(ssim(data["image"], comp))
+            if programs is None:
+                if i == 0:  # warm-up outside the FPS window
+                    self._render(model, data, sh_degree, background)
+                    _sync(device)
+                    t0 = time.perf_counter()
+                img, comp, m_psnr, m_ssim, _ = self._frame(model, data, sh_degree, background)
+            else:
+                if i == 0:  # capture and warm-up replay outside the FPS window
+                    self._frame_program(model_set, data, sh_degree, background)
+                    _sync(device)
+                    t0 = time.perf_counter()
+                program = self._frame_program(model_set, data, sh_degree, background)
+                img, comp, m_psnr, m_ssim, count = program.out
+                comp, m_psnr, m_ssim = comp.clone(), m_psnr.clone(), m_ssim.clone()
+                if i in render_indexes:
+                    img = img.clone()
+                if record is not None and count is not None:
+                    record(count.clone())
+            psnrs.append(m_psnr)
+            ssims.append(m_ssim)
             lpips_pairs.append((comp, data["image"]))
             if i in render_indexes:
                 renders.append((data["image"], img))
@@ -111,7 +215,7 @@ class Evaluator:
         # LPIPS after the timed window (a separate VGG pass, not render time)
         if lpips_pairs:
             metrics[lpips_key] = float(torch.stack(
-                [self.lpips.device_fn(c, gt) for c, gt in lpips_pairs]).sum())
+                [self._lpips(c, gt) for c, gt in lpips_pairs]).sum())
         for render_count, (gt, img) in enumerate(renders, start=1):
             metrics[f"render_{render_count}"] = np.concatenate(
                 [gt.cpu().numpy(), img.cpu().numpy()], axis=1)
@@ -122,7 +226,12 @@ class Evaluator:
             times = []
             for _ in range(3):
                 t1 = time.perf_counter()
-                self._render(model, last, sh_degree, background).cpu()
+                # the whole frame and its PSNR read back, as the JAX
+                # evaluator times its jitted frame: its program on the card
+                if programs is None:
+                    self._frame(model, last, sh_degree, background)[2].cpu()
+                else:
+                    self._frame_program(model_set, last, sh_degree, background).out[2].cpu()
                 times.append(time.perf_counter() - t1)
             metrics["latency_ms"] = float(np.median(times) * 1e3)
             metrics["latency_device_ms"] = self._chain_ms(model, last, sh_degree, background)
@@ -130,25 +239,28 @@ class Evaluator:
 
     def _chain_ms(self, model, data, sh_degree, background) -> float:
         """One render's time in a chain of ``LATENCY_CHAIN`` renders. On the
-        card the chain is captured once in a CUDA graph and one replay is
-        timed with CUDA events, so the host's issue gaps between the
-        render's launches are not counted; on the CPU, the host clock over
-        the chain."""
+        card the chain is captured once (``graphs.Captured``, so the launch
+        counters count each replay's renders) and one replay is timed with
+        CUDA events, so the host's issue gaps between the render's launches
+        are not counted; on the CPU, the host clock over the chain."""
         device = background.device
         if device.type == "cuda":
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            from ..training.graphs import Captured
+
+            def chain():
                 for _ in range(LATENCY_CHAIN):
                     self._render(model, data, sh_degree, background)
-            graph.replay()  # the first replay uploads the graph
+
+            # no warm-up calls: the frame has just been rendered
+            program = Captured(chain, device, warmup=lambda: None, what="the latency chain")
+            program.replay()  # the first replay uploads the graph
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            graph.replay()
+            program.replay()
             end.record()
             end.synchronize()
-            ms = float(start.elapsed_time(end) / LATENCY_CHAIN)
-            graph.reset()
-            return ms
+            program.reset()
+            return float(start.elapsed_time(end) / LATENCY_CHAIN)
         t1 = time.perf_counter()
         for _ in range(LATENCY_CHAIN):
             self._render(model, data, sh_degree, background)

@@ -71,7 +71,9 @@ class LPIPS:
     """``kind`` is "vgg" (pretrained weights) or "proxy" (seeded weights).
     ``device_fn(a, b)`` takes two [H, W, 3] images in [0, 1] (tensors on
     any device) and returns the distance as a 0-d tensor on that device;
-    the weights go to each device once."""
+    the weights and the input normalisation go to each device once, so a
+    call after the first copies nothing from the host (the evaluator
+    captures it in a CUDA graph per image size)."""
 
     def __init__(self, kind: str, weights: Dict[str, np.ndarray]):
         self.kind = kind
@@ -80,8 +82,10 @@ class LPIPS:
 
     def _wts(self, device: torch.device) -> Dict[str, torch.Tensor]:
         if device not in self._on:
+            wts = dict(self._weights, shift=np.asarray(_SHIFT, np.float32).reshape(1, 3, 1, 1),
+                       scale=np.asarray(_SCALE, np.float32).reshape(1, 3, 1, 1))
             self._on[device] = {k: torch.as_tensor(v, dtype=torch.float32).to(device)
-                                for k, v in self._weights.items()}
+                                for k, v in wts.items()}
         return self._on[device]
 
     def _features(self, x: torch.Tensor, wts):
@@ -100,12 +104,10 @@ class LPIPS:
     @torch.no_grad()
     def device_fn(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         wts = self._wts(a.device)
-        shift = torch.tensor(_SHIFT, device=a.device).view(1, 3, 1, 1)
-        scale = torch.tensor(_SCALE, device=a.device).view(1, 3, 1, 1)
 
         def prep(img):
             x = torch.movedim(img.to(torch.float32), -1, 0)[None] * 2.0 - 1.0
-            return (x - shift) / scale
+            return (x - wts["shift"]) / wts["scale"]
 
         total = torch.zeros((), device=a.device)
         for i, (xa, xb) in enumerate(zip(self._features(prep(a), wts), self._features(prep(b), wts))):

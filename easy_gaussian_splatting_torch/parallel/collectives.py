@@ -8,6 +8,9 @@ timed-out collective raises (the group's timeout, set at
 takes every one of them on CUDA tensors too (``all_reduce`` sum and max,
 ``all_gather_into_tensor``, ``reduce_scatter_tensor``; checked on an H100
 with torch 2.11), which is how one card hosts a world of several ranks.
+NCCL's collectives can be recorded into a CUDA graph (``training/
+graphs.py``'s sharded step) once the communicator is up; gloo's wait on
+the host and cannot, so a gloo world's step runs eagerly.
 
 **The stripe gather and its gradient.** ``gather_rows`` is an
 ``autograd.Function``: forward, ``all_gather`` of every rank's rows in
@@ -35,7 +38,8 @@ import torch.distributed as dist
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 # (collective, backend) -> calls in this process, the smoke run's report of
-# which collectives ran on which backend
+# which collectives ran on which backend (a replayed graph adds the calls
+# its capture recorded, as it adds its kernel launches)
 CALLS: collections.Counter = collections.Counter()
 
 

@@ -24,11 +24,11 @@ from typing import Callable
 
 import torch
 
-from ..models.density import densify_and_prune, update_statistics
+from ..models.density import densify_and_prune
 from ..models.gaussians import PARAM_NAMES, GaussianModelState, GaussianParams, grow_capacity
 from ..models.optimizer import AdamState, grow_adam_state
 from ..training.config import Config
-from ..training.trainer import _apply_adam, grad_leaves, param_grads
+from ..training.trainer import _apply_adam, grad_leaves, param_grads, update_stats
 from . import collectives as col
 from .mesh import GAUSS_AXIS, TILE_AXIS
 from .shard import (
@@ -159,19 +159,19 @@ def make_gauss_sharded_grad_fn(cfg: Config, mesh, render_fn: Callable, height: i
 def make_gauss_sharded_train_step(cfg: Config, mesh, render_fn: Callable, height: int,
                                   width: int):
     """The train step over Gaussian-sharded state (the single step's
-    signature without ``height``/``width``): statistics and Adam on this
-    rank's shard, camera and image replicated."""
+    signature without ``height``/``width``, with ``in_place``): statistics
+    and Adam on this rank's shard, camera and image replicated. Its capture
+    contract is ``shard.make_sharded_train_step``'s: tensor or host flags,
+    no branch on them, no device value read on the host."""
     grads_impl = build_gauss_grads(cfg, mesh, render_fn, height, width)
 
     def step(model, adam, w2c, K, image, mask, lr_means, do_stats, skip_all, skip_opac, *,
-             sh_degree):
+             sh_degree, in_place: bool = False):
         grads, absgrad, ld, _, radii = grads_impl(model.params, model.alive, w2c, K, image, mask,
                                                   sh_degree)
-        stats = model.stats
-        if do_stats:
-            stats = update_statistics(stats, radii, absgrad, height, width)
+        stats = update_stats(model.stats, radii, absgrad, do_stats, height, width, in_place)
         model_new, adam_new = _apply_adam(cfg, model, adam, grads, stats, lr_means, skip_all,
-                                          skip_opac)
+                                          skip_opac, in_place)
         return model_new, adam_new, ld
 
     return step

@@ -26,11 +26,17 @@ from typing import Callable
 
 import torch
 
-from ..models.density import update_statistics
 from ..models.gaussians import PARAM_NAMES, GaussianParams
 from ..models.render import CameraView
 from ..training.config import Config
-from ..training.trainer import _apply_adam, _background, cfg_loss, grad_leaves, param_grads
+from ..training.trainer import (
+    _apply_adam,
+    _background,
+    cfg_loss,
+    grad_leaves,
+    param_grads,
+    update_stats,
+)
 from . import collectives as col
 
 PARTITIONS = ("uniform", "adaptive")
@@ -208,20 +214,22 @@ def make_sharded_grad_fn(cfg: Config, mesh, render_fn: Callable, height: int, wi
 def make_sharded_train_step(cfg: Config, mesh, render_fn: Callable, height: int, width: int):
     """The stripe-sharded train step for one (padded) image size:
     ``step(model, adam, w2c, K, image, mask, lr_means, do_stats, skip_all,
-    skip_opac, *, sh_degree) -> (model, adam, loss dict)``, the single
-    step's signature without ``height``/``width``. ``height`` must be a
-    multiple of the mesh size (the trainer pads frames and masks the pad)."""
+    skip_opac, *, sh_degree, in_place=False) -> (model, adam, loss dict)``,
+    the single step's signature without ``height``/``width``, and its
+    capture contract: ``lr_means`` and the flags host values or 0-d tensors
+    (applied with ``torch.where``, the same bits either way), ``in_place``
+    writing the update into the given state's tensors, no device value read
+    on the host. ``height`` must be a multiple of the mesh size (the trainer
+    pads frames and masks the pad)."""
     grads_impl = build_sharded_grads(cfg, mesh, render_fn, height, width)
 
     def step(model, adam, w2c, K, image, mask, lr_means, do_stats, skip_all, skip_opac, *,
-             sh_degree):
+             sh_degree, in_place: bool = False):
         (grads, absgrad), ld, radii = grads_impl(model.params, model.alive, w2c, K, image, mask,
                                                  sh_degree)
-        stats = model.stats
-        if do_stats:
-            stats = update_statistics(stats, radii, absgrad, height, width)
+        stats = update_stats(model.stats, radii, absgrad, do_stats, height, width, in_place)
         model_new, adam_new = _apply_adam(cfg, model, adam, grads, stats, lr_means, skip_all,
-                                          skip_opac)
+                                          skip_opac, in_place)
         return model_new, adam_new, ld
 
     return step

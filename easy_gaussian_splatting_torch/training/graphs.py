@@ -1,12 +1,47 @@
-"""The compiled step: the train step captured as a CUDA graph, one per static
-signature; counterpart of ``easy_gaussian_splatting_tpu/training/
-precompile.py`` and of the JAX trainer's ``jax.jit`` with
-``donate_argnames=("model", "adam")``.
+"""The compiled programs: the train steps and the eval's frame captured as
+CUDA graphs, one per static signature; counterpart of
+``easy_gaussian_splatting_tpu/training/precompile.py`` and of the JAX
+package's ``jax.jit`` programs (the train steps with
+``donate_argnames=("model", "adam")``, the sharded steps of
+``parallel/shard.py`` and ``parallel/gauss_shard.py``, the batched step,
+the evaluator's frame).
 
-``step_signature`` is the key a program is built for (the JAX package's
-precompile key, plus the renderer and the backward reduction and binning
-in force). ``GraphedTrainStep`` has the call signature of
-``make_train_step``'s closure and runs it as a replayed graph:
+The machinery every program here shares:
+
+- ``Captured``: one captured program. ``WARMUP_CALLS`` eager calls on the
+  capture's stream first (the kernels' first build, library workspaces,
+  the NCCL communicator's first collective), then the capture, with
+  ``capture_error_mode="thread_local"`` (the prefetch threads, the
+  viewer's HTTP threads and NCCL's own keep running); its wall times and
+  the growth of its pool are recorded.
+- ``Programs``: the captured programs of one owner in an LRU over one
+  memory pool and one capture stream. ``Programs.run`` is the one way an
+  owner replays a program: at a key's first use it copies the inputs
+  into buffers of the program's own and captures over them, afterwards
+  it copies each call's inputs into those buffers; then it replays.
+  Sharing the pool is safe because the programs replay one at a time on
+  one stream and each replay's outputs are read or copied before the
+  next; sharing the stream keeps the pool from growing by a copy a
+  program (the allocator gives a freed block again only to work on the
+  stream that freed it).
+- The launch counters: the kernel wrappers count their launches in
+  Python, which a replay does not run. ``Captured`` records the counters'
+  increments during the capture (where nothing launches), takes them
+  back and adds them at every replay, so a replayed program counts its
+  launches as an eager call does (the warm-up calls are real launches and
+  count); the collectives' ``CALLS`` likewise. ``chip_smoke.py`` holds
+  the kernel counts to the kernels the profiler sees in replays.
+
+``step_signature`` is the key the JAX package precompiles for (plus the
+renderer and the backward reduction and binning in force);
+``graph_signature`` adds what tells the step factories apart (the batch
+size, the mesh). ``GraphedTrainStep(cfg, step, device, mesh=None)`` runs
+an eager step as a replayed graph, with the step's call signature: the
+single-camera step (``make_train_step``), the batched step
+(``make_batched_train_step``: frames ``[B,4,4]``, ``[B,3,3]``,
+``[B,H,W,3]``, ``[B,H,W]``) or the sharded step of an NCCL mesh
+(``make_mesh_train_step`` with ``mesh``: this rank's shard of the state,
+the padded frame):
 
 - it owns static input buffers: the model and Adam state, the frame
   (``w2c``, ``K``, ``image``, ``mask``) and the 0-d ``lr_means`` and three
@@ -24,41 +59,37 @@ in force). ``GraphedTrainStep`` has the call signature of
   the same buffers; it fills the scalars, replays and returns the buffers'
   state and the loss dict, which belongs to the graph: read or copy it
   before the next call;
-- the programs of one state (one per frame size and SH degree, as
-  ``jax.jit`` keeps one per shape) are kept in an LRU of ``TRAIN_GRAPHS``
-  over the same state buffers and one memory pool, so a scene whose frames
-  come in several sizes captures each size once. Sharing the pool is safe
-  because the programs replay one at a time on one stream and each call's
-  loss dict is read before the next. A state of another capacity resets
-  every program and the pool before its first capture. A capture runs
-  ``WARMUP_CALLS`` eager calls on the step's capture stream first (the
-  kernels' first build, library workspaces; the same in-place step with
-  every update skipped, which writes each buffer with its own bits), then
-  records on that stream (one for all the programs of the pool) with
-  ``capture_error_mode="thread_local"`` (the prefetch threads and the
-  viewer's HTTP threads keep running) and logs its wall time and the
-  growth of the pool. It happens in the call, at the first step of a
+- the programs of one state (one per frame size, SH degree and batch
+  size, as ``jax.jit`` keeps one per shape) are kept in ``Programs`` of
+  ``TRAIN_GRAPHS``, so a scene whose frames come in several sizes
+  captures each size once. A state of another capacity resets every
+  program and the pool before its first capture. The warm-up calls are the
+  same in-place step with every update skipped, which writes each buffer
+  with its own bits. A capture happens in the call, at the first step of a
   signature: no thread captures ahead, as the JAX package's precompiler
   compiles ahead (a capture costs a few step times, not a compile).
 
-The kernel wrappers count their launches in Python, which a replay does
-not run: ``Captured`` records the counters' increments during the capture
-(where nothing launches), takes them back, and adds them at every replay,
-so a replayed step counts its launches as an eager step does (the warm-up
-calls are real launches and count). ``chip_smoke.py`` holds these counts
-to the kernels the profiler sees in replayed steps.
+Under a mesh every rank captures at the same step and records the same
+collectives in the same order: the signature holds only values that are
+equal on every rank (the shard's capacity, the padded frame size, the SH
+degree, the config and the mesh), and the step reads no device value on
+the host. A gloo world cannot be captured (its collectives wait on the
+host), so ``GraphedTrainStep`` refuses one and ``train()`` runs a gloo
+mesh eagerly.
 
-A graph runs only on a CUDA device: on any other, ``GraphedTrainStep``
-raises, and ``train()`` on the CPU runs ``make_train_step`` eagerly.
+A graph runs only on a CUDA device: on any other, ``GraphedTrainStep``,
+``Programs`` and ``Captured`` raise, and the CPU runs the eager
+functions.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, Hashable, List, Sequence
 
 import torch
 
@@ -89,6 +120,18 @@ def step_signature(cfg: Config, capacity: int, height: int, width: int, sh_degre
     )
 
 
+def graph_signature(cfg: Config, capacity: int, height: int, width: int, sh_degree: int, *,
+                    batch: int = 0, mesh=None) -> tuple:
+    """A ``GraphedTrainStep`` program's key: :func:`step_signature` (under a
+    mesh at the shard's capacity and the padded height), then the batch size
+    (0: the single-camera step) and the mesh (its axes and shape, the stripe
+    partition and interleave; None: no mesh). Every field is the same on
+    every rank of a mesh, so the ranks capture at the same steps."""
+    where = None if mesh is None else (tuple(mesh.axis_names), tuple(mesh.shape),
+                                       cfg.stripe_partition, cfg.stripe_interleave)
+    return step_signature(cfg, capacity, height, width, sh_degree) + (batch, where)
+
+
 # ----------------------------------------------------------- launch counts
 def _counters():
     from ..ops.kernels import binkeys, group_reduce, segments, tile_raster
@@ -110,6 +153,12 @@ def _add_counts(delta: Sequence[int]) -> None:
         setattr(mod, name, getattr(mod, name) + d)
 
 
+def _collective_calls() -> collections.Counter:
+    from ..parallel.collectives import CALLS
+
+    return CALLS
+
+
 def require_cuda(what: str, device) -> torch.device:
     device = torch.device(device)
     if device.type != "cuda":
@@ -122,13 +171,10 @@ def require_cuda(what: str, device) -> torch.device:
 
 class Captured:
     """One captured program: ``fn``'s outputs from its capture (``out``) and
-    the kernel launches recorded into it. ``WARMUP_CALLS`` eager calls of
-    ``warmup`` (default ``fn``: the same work, leaving the state as it was)
-    run on a side stream first (``stream``, or a new one), then the capture
-    records on that stream. Programs that share a memory pool share their
-    stream too: the allocator gives a freed block again only to work on the
-    stream that freed it, so a capture on another stream would grow the
-    pool past the blocks an earlier capture left free."""
+    the kernel launches (and collectives) recorded into it. ``WARMUP_CALLS``
+    eager calls of ``warmup`` (default ``fn``: the same work, leaving the
+    state as it was) run on a side stream first (``stream``, or a new one),
+    then the capture records on that stream into ``pool``."""
 
     def __init__(self, fn: Callable, device, pool=None, warmup: Callable | None = None,
                  what: str = "program", stream: torch.cuda.Stream | None = None):
@@ -148,7 +194,7 @@ class Captured:
         # the reserved bytes before and after it differ by the pool alone)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
-        before = launch_counts()
+        before, calls = launch_counts(), collections.Counter(_collective_calls())
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool, stream=stream,
@@ -157,15 +203,81 @@ class Captured:
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.launches = tuple(a - b for a, b in zip(launch_counts(), before))
         _add_counts([-d for d in self.launches])  # recorded, not launched
+        self.collectives = collections.Counter(_collective_calls())
+        self.collectives.subtract(calls)
+        _collective_calls().subtract(self.collectives)
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
 
     def replay(self) -> None:
         self.graph.replay()
         _add_counts(self.launches)
+        _collective_calls().update(self.collectives)
 
     def reset(self) -> None:
         self.graph.reset()
         self.out = None
+
+
+class Programs:
+    """The captured programs of one owner, by key, in an LRU of ``size`` over
+    one memory pool and one capture stream (see the module docstring).
+    ``run`` replays the program of a key, capturing it at the key's first
+    use; ``entries`` maps a key to its ``Captured``; ``captures`` lists
+    every capture (its key, warm-up and capture wall times in ms, the
+    pool's growth in bytes), resets included; ``reset`` drops every program
+    and the pool, whose memory goes back to the card. ``describe`` names a
+    key in the capture's log line."""
+
+    def __init__(self, device, size: int, what: str, describe: Callable[[Hashable], str] = repr):
+        self.device = require_cuda(what, device)
+        self.size, self.what, self.describe = size, what, describe
+        self.stream = torch.cuda.Stream(self.device)  # every capture's, as they share the pool
+        self.pool = None
+        self.entries: OrderedDict = OrderedDict()
+        self.captures: List[Dict] = []
+
+    def run(self, key: Hashable, fn: Callable, inputs: Sequence[torch.Tensor],
+            warmup: Callable | None = None) -> Captured:
+        """Replay the program of ``key`` with ``inputs`` in its buffers and
+        return it (its outputs in ``out``: read or copy them before the next
+        replay). At the key's first use the buffers (``Captured.inputs``)
+        are copies of ``inputs`` on the programs' device, and ``fn(buffers)``
+        is captured after the warm-up calls of ``warmup(buffers)`` (default
+        ``fn``), the least recent program dropped past ``size``; afterwards
+        each input is copied into its buffer, unless it is that buffer."""
+        p = self.entries.get(key)
+        if p is not None:
+            self.entries.move_to_end(key)
+            copy_in(p.inputs, inputs)
+        else:
+            while len(self.entries) >= self.size:
+                self.entries.popitem(last=False)[1].reset()
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            bufs = [torch.empty(t.shape, dtype=t.dtype, device=self.device).copy_(t)
+                    for t in inputs]
+            p = Captured(lambda: fn(bufs), self.device, pool=self.pool,
+                         warmup=None if warmup is None else lambda: warmup(bufs),
+                         what=self.what, stream=self.stream)
+            p.inputs = bufs
+            self.entries[key] = p
+            self.captures.append(dict(key=key, warmup_ms=p.warmup_ms, capture_ms=p.capture_ms,
+                                      pool_bytes=p.pool_bytes))
+            logger.info(
+                f"captured {self.what} ({self.describe(key)}) in {p.capture_ms:.1f} ms after "
+                f"{WARMUP_CALLS} warm-up calls in {p.warmup_ms:.1f} ms; pool "
+                f"{p.pool_bytes / 2**20:.1f} MiB"
+            )
+        p.replay()
+        return p
+
+    def reset(self) -> None:
+        for program in self.entries.values():
+            program.reset()
+        self.entries.clear()
+        if self.pool is not None:
+            self.pool = None
+            torch.cuda.empty_cache()  # the old pool's memory goes back to the card
 
 
 # --------------------------------------------------------------- the step
@@ -212,75 +324,65 @@ def _donated(leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
+def _describe(sig: tuple) -> str:
+    """A train-step signature in a capture's log line."""
+    kind = (f", batch {sig[-2]}" if sig[-2] else "") + (
+        f", mesh {dict(zip(*sig[-1][:2]))}" if sig[-1] else "")
+    return f"capacity {sig[0]}, {sig[2]}x{sig[1]}, sh {sig[3]}, isect_mult {sig[4]}{kind}"
+
+
 class GraphedTrainStep:
-    """``make_train_step(cfg, render_fn)`` run as a CUDA graph per signature;
-    see the module docstring. ``captures`` lists each capture's signature,
-    warm-up and capture wall times (ms) and pool size (bytes)."""
+    """``step``, an eager train step, run as a CUDA graph per signature (see
+    the module docstring): ``make_train_step``'s, ``make_batched_train_step``'s
+    (frames with a leading B axis; B goes into the signature) or, with
+    ``mesh`` (an NCCL mesh), ``make_mesh_train_step``'s. The call signature
+    is the step's; under a mesh ``height`` is the padded frame's.
+    ``captures`` lists each capture's signature (``key``), warm-up and
+    capture wall times (ms) and pool size (bytes)."""
 
-    def __init__(self, cfg: Config, render_fn: Callable, device):
-        from .trainer import make_train_step
-
+    def __init__(self, cfg: Config, step: Callable, device, *, mesh=None):
+        if mesh is not None and mesh.backend != "nccl":
+            raise ValueError(
+                f"a {mesh.backend} world cannot be captured in a CUDA graph: its collectives "
+                "wait on the host (NCCL's can be captured; train() runs a gloo mesh eagerly)"
+            )
         self.device = require_cuda("GraphedTrainStep", device)
-        self.cfg = cfg
-        self._step = make_train_step(cfg, render_fn)
+        self.cfg, self.mesh, self._step = cfg, mesh, step
         self.signature = None  # the last replayed program's
-        self.captures: List[Dict] = []
-        self._programs: OrderedDict = OrderedDict()  # signature -> (Captured, frame buffers)
-        self._state = self._pool = None
-        self._stream = torch.cuda.Stream(self.device)  # every capture's, as they share a pool
+        self._programs = Programs(self.device, TRAIN_GRAPHS, "the train step", _describe)
+        self.captures = self._programs.captures
+        self._state = None
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
         self._flags = [torch.zeros((), dtype=torch.bool, device=self.device) for _ in range(3)]
+        # the warm-up calls' flags: every group's update skipped, no
+        # statistics taken, so each buffer is written with its own bits and
+        # the state stays as it was given (and the warm-up needs no more
+        # memory than the program)
+        self._skip_every = [torch.tensor(v, device=self.device) for v in (False, True, True)]
 
     @property
     def program(self) -> Captured | None:
         """The program of the last call."""
-        entry = self._programs.get(self.signature)
-        return None if entry is None else entry[0]
+        return self._programs.entries.get(self.signature)
 
     def reset(self) -> None:
         """Drop the graphs, their pool and the buffers they hold."""
         if self._state is not None:
-            for program, _ in self._programs.values():
-                program.reset()
-            self._programs.clear()
-            self._state = self._pool = self.signature = None
-            torch.cuda.empty_cache()  # the old pool's memory goes back to the card
+            self._programs.reset()
+            self._state = self.signature = None
 
-    def _capture(self, sig, frame, kw):
-        frame_bufs = [t.detach().clone(memory_format=torch.contiguous_format) for t in frame]
-
-        def step(flags):
-            m, a = state_from(self._state)
-            model_new, adam_new, ld = self._step(m, a, *frame_bufs, self._lr, *flags, **kw,
-                                                 in_place=True)
-            # a no-op where the step wrote into the buffers, as it does
-            copy_in(self._state, state_leaves(model_new, adam_new))
-            return ld
-
-        # the warm-up calls run the same in-place step with every group's
-        # update skipped and no statistics taken: each buffer is written
-        # with its own bits, so the state stays as it was given, and the
-        # warm-up needs no more memory than the program
-        skip_every = [torch.tensor(v, device=self.device) for v in (False, True, True)]
-        while len(self._programs) >= TRAIN_GRAPHS:
-            self._programs.popitem(last=False)[1][0].reset()
-        p = Captured(lambda: step(self._flags), self.device, pool=self._pool,
-                     warmup=lambda: step(skip_every), what="GraphedTrainStep",
-                     stream=self._stream)
-        self._programs[sig] = (p, frame_bufs)
-        self.captures.append(dict(signature=sig, warmup_ms=p.warmup_ms,
-                                  capture_ms=p.capture_ms, pool_bytes=p.pool_bytes))
-        logger.info(
-            f"captured the train step (capacity {sig[0]}, {sig[2]}x{sig[1]}, sh {sig[3]}, "
-            f"isect_mult {sig[4]}) in {p.capture_ms:.1f} ms after {WARMUP_CALLS} warm-up "
-            f"calls in {p.warmup_ms:.1f} ms; pool {p.pool_bytes / 2**20:.1f} MiB"
-        )
-        return self._programs[sig]
+    def _run(self, frame, flags, kw):
+        """The in-place step over the state's buffers and ``frame``; the
+        loss dict."""
+        m, a = state_from(self._state)
+        model_new, adam_new, ld = self._step(m, a, *frame, self._lr, *flags, **kw, in_place=True)
+        # a no-op where the step wrote into the buffers, as it does
+        copy_in(self._state, state_leaves(model_new, adam_new))
+        return ld
 
     def __call__(self, model: GaussianModelState, adam: AdamState, w2c, K, image, mask,
                  lr_means, do_stats, skip_all, skip_opac, *, height: int, width: int,
                  sh_degree: int):
-        frame = (w2c, K, image, mask)
         for buf, v in zip([self._lr] + self._flags, (lr_means, do_stats, skip_all, skip_opac)):
             if isinstance(v, torch.Tensor):
                 buf.copy_(v)
@@ -290,17 +392,14 @@ class GraphedTrainStep:
             self.reset()  # another state: its programs go with the old one
         if self._state is None:
             self._state = _donated(state_leaves(model, adam))
-            self._pool = torch.cuda.graph_pool_handle()
         else:
             copy_in(self._state, state_leaves(model, adam))
-        sig = step_signature(self.cfg, model.capacity, height, width, sh_degree)
-        entry = self._programs.get(sig)
-        if entry is None:
-            entry = self._capture(sig, frame, dict(height=height, width=width, sh_degree=sh_degree))
-        else:
-            self._programs.move_to_end(sig)
-            copy_in(entry[1], frame)
-        entry[0].replay()
-        self.signature = sig
+        self.signature = graph_signature(
+            self.cfg, model.capacity, height, width, sh_degree,
+            batch=w2c.shape[0] if w2c.dim() == 3 else 0, mesh=self.mesh)
+        kw = dict(height=height, width=width, sh_degree=sh_degree)
+        program = self._programs.run(
+            self.signature, lambda frame: self._run(frame, self._flags, kw),
+            (w2c, K, image, mask), warmup=lambda frame: self._run(frame, self._skip_every, kw))
         model_new, adam_new = state_from(self._state)
-        return model_new, adam_new, dict(entry[0].out)
+        return model_new, adam_new, dict(program.out)

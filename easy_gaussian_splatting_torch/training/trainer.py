@@ -4,12 +4,14 @@
 One step is render -> loss -> backward -> statistics -> grouped Adam for
 one camera; refine events (every ``refine_every`` steps) run densify and
 prune with that step's weight update skipped; scalars are read back a few
-steps late so the host never waits on the card. On the card (with no mesh)
-the step runs as a CUDA graph, one per static signature, over buffers it
-updates in place (``graphs.GraphedTrainStep``, the counterpart of the JAX
-step's ``jax.jit`` with donation): a new capacity, SH degree or binning
-retune captures a new graph at its first step, where the JAX trainer
-compiles ahead in a background thread. On the CPU the step runs eagerly.
+steps late so the host never waits on the card. On the card (with no mesh,
+or on an NCCL mesh) the step runs as a CUDA graph, one per static
+signature, over buffers it updates in place (``graphs.GraphedTrainStep``,
+the counterpart of the JAX step's ``jax.jit`` with donation): a new
+capacity, SH degree or binning retune captures a new graph at its first
+step, where the JAX trainer compiles ahead in a background thread. On the
+CPU and on a gloo mesh (whose collectives cannot be captured) the step runs
+eagerly, and ``train()`` logs why at its start.
 ``EGS_TORCH_LOOP_TIMING=1`` logs the loop's wall time in buckets every 100
 steps, as ``EGS_TPU_LOOP_TIMING`` does.
 
@@ -23,9 +25,10 @@ records a profiler window when ``profile_steps`` and ``output`` are set.
 HTTP threads only post the requested camera to a ``DelayRender`` mailbox,
 and the loop renders the newest request once per iteration, between
 steps, so the card's cadence stays the loop's, and the frame reads the
-step's buffers whole. ``make_batched_train_step``
-is the multi-camera step (B views, one Adam update with the mean
-gradient); ``train()`` keeps batch 1.
+step's buffers whole. ``make_batched_train_step`` is the multi-camera step
+(B views, one Adam update with the mean gradient; graphed as
+``GraphedTrainStep(cfg, make_batched_train_step(cfg, render_fn), device)``);
+``train()`` keeps batch 1.
 
 ``mesh_shape`` (``"tiles:N"``, ``"gauss:N"``, ``"gauss:G,tiles:T"``) trains on
 a mesh of the initialised ``torch.distributed`` world, one rank a device
@@ -208,31 +211,37 @@ def _loss_and_grads(cfg: Config, render_fn: Callable, model: GaussianModelState,
     )
 
 
+def update_stats(stats, radii, absgrad, do_stats: bool | torch.Tensor, height: int, width: int,
+                 in_place: bool = False) -> DensifyStats:
+    """``stats`` with one view's observations added when ``do_stats``
+    (inside the refine window). A 0-d bool tensor computes the new
+    statistics and picks them with :func:`select`, as the JAX step's
+    ``jnp.where`` does, with no branch on the flag, so one captured step
+    serves both; a host bool computes them only when true. ``in_place``
+    writes the pick into ``stats``' tensors."""
+    if not isinstance(do_stats, torch.Tensor) and not do_stats:
+        return stats  # what select(False, new, stats) would give
+    new = update_statistics(stats, radii, absgrad, height, width)
+    return DensifyStats(*(
+        select(do_stats, getattr(new, f.name), getattr(stats, f.name),
+               getattr(stats, f.name) if in_place else None)
+        for f in dataclasses.fields(DensifyStats)))
+
+
 def _view_grads(cfg: Config, render_fn: Callable, model: GaussianModelState, stats,
                 w2c, K, image, mask, do_stats: bool | torch.Tensor, height: int, width: int,
                 sh_degree: int, in_place: bool = False):
     """One view of a train step: its pre-Adam gradients, its loss dict (with
     the binned intersection count as ``isects``, the capacity watchdog's
     channel) and ``stats`` with this view's observations added when
-    ``do_stats`` (inside the refine window). A 0-d bool tensor
-    ``do_stats`` picks the statistics with ``torch.where``, as the JAX
-    step does, a host bool with no tensor made; ``in_place`` writes them
-    into ``stats``' tensors."""
+    ``do_stats`` (:func:`update_stats`)."""
     camera = CameraView(w2c=w2c, K=K, width=width, height=height)
     grads, absgrad, ld, radii, num_isects = _loss_and_grads(
         cfg, render_fn, model, camera, image, mask, sh_degree
     )
     if num_isects is not None:
         ld["isects"] = num_isects.to(torch.float32)
-    if isinstance(do_stats, torch.Tensor) or in_place:
-        new = update_statistics(stats, radii, absgrad, height, width)
-        stats = DensifyStats(*(
-            select(do_stats, getattr(new, f.name), getattr(stats, f.name),
-                   getattr(stats, f.name) if in_place else None)
-            for f in dataclasses.fields(DensifyStats)))
-    elif do_stats:
-        stats = update_statistics(stats, radii, absgrad, height, width)
-    return grads, ld, stats
+    return grads, ld, update_stats(stats, radii, absgrad, do_stats, height, width, in_place)
 
 
 def _apply_adam(cfg: Config, model: GaussianModelState, adam: AdamState, grads,
@@ -302,7 +311,11 @@ def make_batched_train_step(cfg: Config, render_fn: Callable):
 
     This is gradient accumulation, not B steps: ``train()`` keeps batch 1.
     Camera tensors are stacked on a leading B axis: ``w2cs [B,4,4]``,
-    ``Ks [B,3,3]``, ``images [B,H,W,3]``, ``masks [B,H,W]``."""
+    ``Ks [B,3,3]``, ``images [B,H,W,3]``, ``masks [B,H,W]``. The flags and
+    ``lr_means`` may be host values or 0-d tensors, and ``in_place`` writes
+    the update into the given state, as ``make_train_step``'s do; on the
+    card ``graphs.GraphedTrainStep(cfg, this step, device)`` runs it as a
+    CUDA graph per signature (B in it)."""
 
     def train_step(
         model: GaussianModelState,
@@ -311,14 +324,15 @@ def make_batched_train_step(cfg: Config, render_fn: Callable):
         Ks: torch.Tensor,
         images: torch.Tensor,
         masks: torch.Tensor,
-        lr_means: float,
-        do_stats: bool,
-        skip_all: bool,
-        skip_opac: bool,
+        lr_means: float | torch.Tensor,
+        do_stats: bool | torch.Tensor,
+        skip_all: bool | torch.Tensor,
+        skip_opac: bool | torch.Tensor,
         *,
         height: int,
         width: int,
         sh_degree: int,
+        in_place: bool = False,
     ):
         b = w2cs.shape[0]
         stats = model.stats
@@ -327,7 +341,7 @@ def make_batched_train_step(cfg: Config, render_fn: Callable):
         for i in range(b):
             grads, ld, stats = _view_grads(cfg, render_fn, model, stats, w2cs[i], Ks[i],
                                            images[i], masks[i], do_stats, height, width,
-                                           sh_degree)
+                                           sh_degree, in_place)
             grads_sum = GaussianParams(**{n: getattr(grads_sum, n) + getattr(grads, n)
                                           for n in PARAM_NAMES})
             lds.append(ld)
@@ -335,8 +349,33 @@ def make_batched_train_step(cfg: Config, render_fn: Callable):
         ld = {k: torch.stack([d[k] for d in lds]) for k in lds[0]}
         ld = {k: v.max() if k == "isects" else v.mean() for k, v in ld.items()}
         model_new, adam_new = _apply_adam(cfg, model, adam, grads, stats, lr_means,
-                                          skip_all, skip_opac)
+                                          skip_all, skip_opac, in_place)
         return model_new, adam_new, ld
+
+    return train_step
+
+
+def make_mesh_train_step(cfg: Config, mesh, render_fn: Callable):
+    """The sharded train step of ``mesh`` (``gauss_shard``'s under a gauss
+    axis, ``shard``'s otherwise) with the single step's call signature:
+    ``height`` is the padded frame's, the state this rank's (its shard under
+    ``gauss``). One step closure per frame size, built at its first call.
+    On an NCCL mesh ``graphs.GraphedTrainStep(cfg, this step, device,
+    mesh=mesh)`` runs it as a CUDA graph per signature."""
+    from ..parallel import gauss_shard, shard
+    from ..parallel.mesh import GAUSS_AXIS
+
+    steps: Dict[tuple, Callable] = {}
+
+    def train_step(model, adam, w2c, K, image, mask, lr_means, do_stats, skip_all, skip_opac,
+                   *, height: int, width: int, sh_degree: int, in_place: bool = False):
+        fn = steps.get((height, width))
+        if fn is None:
+            make = (gauss_shard.make_gauss_sharded_train_step if GAUSS_AXIS in mesh.axis_names
+                    else shard.make_sharded_train_step)
+            fn = steps[(height, width)] = make(cfg, mesh, render_fn, height, width)
+        return fn(model, adam, w2c, K, image, mask, lr_means, do_stats, skip_all, skip_opac,
+                  sh_degree=sh_degree, in_place=in_place)
 
     return train_step
 
@@ -578,9 +617,18 @@ def train(
         return loop.model.capacity * n_gauss
 
     render_fn = get_render_fn(cfg)
-    # on the card with no mesh the step is a CUDA graph per signature
-    # (graphs.py); on the CPU, as asked, and under a mesh it runs eagerly
-    graphed = dev.type == "cuda" and mesh is None
+    # on the card the step is a CUDA graph per signature (graphs.py), under
+    # an NCCL mesh too; on the CPU, and under a gloo mesh, whose collectives
+    # wait on the host and cannot be captured, it runs eagerly
+    eager_why = []
+    if dev.type != "cuda":
+        eager_why.append(f"{dev} is not a CUDA device (a CUDA graph runs on one only)")
+    if mesh is not None and mesh.backend != "nccl":
+        eager_why.append(f"the mesh's {mesh.backend} collectives wait on the host and cannot be "
+                         "captured in a CUDA graph (NCCL's can)")
+    graphed = not eager_why
+    if eager_why:
+        logger.info("the train step runs eagerly: " + "; ".join(eager_why))
     train_step = None
 
     def new_train_step() -> None:
@@ -589,8 +637,9 @@ def train(
         nonlocal train_step
         if graphed and train_step is not None:
             train_step.reset()
-        train_step = (GraphedTrainStep(cfg, render_fn, dev) if graphed
-                      else make_train_step(cfg, render_fn))
+        step = (make_train_step(cfg, render_fn) if mesh is None
+                else make_mesh_train_step(cfg, mesh, render_fn))
+        train_step = GraphedTrainStep(cfg, step, dev, mesh=mesh) if graphed else step
 
     new_train_step()
 
@@ -840,23 +889,17 @@ def train(
         reset_now = in_refine and (step - cfg.refine_start) % cfg.reset_opacities_every == 0
 
         w2c, K, image, mask = _frame_tensors(data, dev)
-        if mesh is None:
-            loop.model, loop.adam, ld = train_step(
-                loop.model, loop.adam, w2c, K, image, mask,
-                means_lr(step), in_refine, densify_now, reset_now,
-                height=data["height"], width=data["width"], sh_degree=loop.active_sh_degree,
-            )
-        else:
+        height = data["height"]
+        if mesh is not None:
             if step == 1:
                 _check_same_frame(w2c, mesh)
             image, mask = _pad_rows(image, mask, pad_unit)
-            make = (gauss_shard.make_gauss_sharded_train_step if gauss
-                    else shard.make_sharded_train_step)
-            loop.model, loop.adam, ld = make(cfg, mesh, render_fn, image.shape[0], data["width"])(
-                loop.model, loop.adam, w2c, K, image, mask,
-                means_lr(step), in_refine, densify_now, reset_now,
-                sh_degree=loop.active_sh_degree,
-            )
+            height = image.shape[0]
+        loop.model, loop.adam, ld = train_step(
+            loop.model, loop.adam, w2c, K, image, mask,
+            means_lr(step), in_refine, densify_now, reset_now,
+            height=height, width=data["width"], sh_degree=loop.active_sh_degree,
+        )
         _bucket("dispatch")
 
         log_now = (

@@ -17,7 +17,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
-from collections import OrderedDict
 from pathlib import Path
 from typing import List
 
@@ -85,34 +84,32 @@ class GraphedRender:
 
     After a replay the image is copied once into a pinned host buffer of
     its size, read after an event, and returned as an array of its own (the
-    server may keep a frame past the next render). The programs share one
-    memory pool: that is safe because they replay one at a time on one
-    stream, each keeps its outputs alive (no capture places its temporaries
-    over them) and each frame is copied out before the next replay.
-    Captures happen on a CUDA device only; another device raises."""
+    server may keep a frame past the next render). The programs are a
+    ``graphs.Programs`` (one memory pool, one capture stream), each frame
+    copied out before the next replay. Captures happen on a CUDA device
+    only; another device raises."""
 
     def __init__(self, make_render_fn, background: torch.Tensor, donated: bool = False):
-        from ..training.graphs import require_cuda
+        from ..training.graphs import Programs
 
-        self.device = require_cuda("GraphedRender", background.device)
+        self.programs = Programs(
+            background.device, RENDER_GRAPHS, "the render",
+            lambda k: f"{k[0]}x{k[1]}, sh {k[2]}, capacity {k[3]}, isect_mult {k[4]}")
+        self.device = self.programs.device
         self.make_render_fn = make_render_fn  # isect_mult -> render function
         self.background = background
         self.donated = donated
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(self.device)  # every capture's, as they share the pool
-        self.programs: OrderedDict = OrderedDict()
         self.model: List[torch.Tensor] | None = None
         self.source = None  # (data_ptr, version) of the tensors copied last
-        self.captures: List[dict] = []
+        self.captures = self.programs.captures
+        self._host = {}  # (height, width) -> pinned image and count, and their event
 
     def _take(self, model: List[torch.Tensor]) -> None:
         """Make ``model``'s values the programs' model set."""
         from ..training.graphs import copy_in
 
         if self.model is None or self.model[0].shape != model[0].shape:
-            for prog in self.programs.values():
-                prog["program"].reset()
-            self.programs.clear()
+            self.programs.reset()
             self.model = model if self.donated else [t.detach().clone() for t in model]
             self.source = None
         source = [(t.data_ptr(), t._version) for t in model]
@@ -120,59 +117,37 @@ class GraphedRender:
             copy_in(self.model, model)
             self.source = source
 
+    def _frame(self, key, w2c, K):
+        """The render of ``key`` over the model set: (image, count or None)."""
+        from ..models.gaussians import PARAM_NAMES, GaussianParams
+        from ..models.render import CameraView
+
+        width, height, sh, _, mult = key
+        params = GaussianParams(**dict(zip(PARAM_NAMES, self.model[:-1])))
+        camera = CameraView(w2c=w2c, K=K, width=width, height=height)
+        out = self.make_render_fn(mult)(params, self.model[-1], camera, sh, self.background)
+        return out.image, out.num_isects
+
     def __call__(self, state, w2c, K, width: int, height: int, sh: int, mult):
         """(image [H, W, 3] f32 on the host, intersection count or None)."""
         from ..models.gaussians import PARAM_NAMES
 
         self._take([getattr(state.params, n) for n in PARAM_NAMES] + [state.alive])
         key = (width, height, sh, state.capacity, mult)
-        prog = self.programs.get(key)
-        if prog is None:
-            prog = self._capture(key, w2c, K)
-        else:
-            self.programs.move_to_end(key)
-        prog["w2c"].copy_(torch.as_tensor(np.asarray(w2c, np.float32)))
-        prog["K"].copy_(torch.as_tensor(np.asarray(K, np.float32)))
-        prog["program"].replay()
-        image, n = prog["program"].out
-        prog["host"].copy_(image, non_blocking=True)
+        camera = [torch.as_tensor(np.asarray(x, np.float32)) for x in (w2c, K)]
+        image, n = self.programs.run(key, lambda bufs: self._frame(key, *bufs), camera).out
+        host = self._host.get((height, width))
+        if host is None:
+            host = self._host[(height, width)] = dict(
+                event=torch.cuda.Event(),
+                image=torch.empty((height, width, 3), dtype=torch.float32, pin_memory=True),
+                n=torch.empty((), dtype=torch.int32, pin_memory=True))
+        host["image"].copy_(image, non_blocking=True)
         if n is not None:
-            prog["host_n"].copy_(n, non_blocking=True)
-        prog["event"].record()
-        prog["event"].synchronize()
-        return prog["host"].numpy().copy(), None if n is None else int(prog["host_n"])
-
-    def _capture(self, key, w2c, K) -> dict:
-        from ..models.gaussians import PARAM_NAMES, GaussianParams
-        from ..models.render import CameraView
-        from ..training.graphs import Captured
-
-        width, height, sh, capacity, mult = key
-        rf = self.make_render_fn(mult)
-        f32 = dict(dtype=torch.float32, device=self.device)
-        prog = dict(w2c=torch.as_tensor(np.asarray(w2c, np.float32), **f32),
-                    K=torch.as_tensor(np.asarray(K, np.float32), **f32))
-        params = GaussianParams(**dict(zip(PARAM_NAMES, self.model[:-1])))
-        camera = CameraView(w2c=prog["w2c"], K=prog["K"], width=width, height=height)
-
-        def frame():
-            out = rf(params, self.model[-1], camera, sh, self.background)
-            return out.image, out.num_isects
-
-        while len(self.programs) >= RENDER_GRAPHS:
-            self.programs.popitem(last=False)[1]["program"].reset()
-        p = Captured(frame, self.device, pool=self.pool, what="GraphedRender", stream=self.stream)
-        prog.update(program=p, event=torch.cuda.Event(),
-                    host=torch.empty((height, width, 3), dtype=torch.float32, pin_memory=True),
-                    host_n=torch.empty((), dtype=torch.int32, pin_memory=True))
-        self.programs[key] = prog
-        self.captures.append(dict(key=key, warmup_ms=p.warmup_ms, capture_ms=p.capture_ms,
-                                  pool_bytes=p.pool_bytes))
-        logger.info(
-            f"captured the {width}x{height} render (sh {sh}, capacity {capacity}, isect_mult "
-            f"{mult}) in {p.capture_ms:.1f} ms; pool {p.pool_bytes / 2**20:.1f} MiB"
-        )
-        return prog
+            host["n"].copy_(n, non_blocking=True)
+        host["event"].record()
+        host["event"].synchronize()
+        return host["image"].numpy().copy(), None if n is None else int(host["n"])
 
 
 def make_gs_render_func(get_state, get_sh_degree, background, render_fn,

@@ -210,6 +210,52 @@ def test_step_signature_ignores_the_learning_rates_and_flags():
         assert graphs.step_signature(changed, 1024, H, W, 3) == base, name
 
 
+def _mesh(shape, backend="nccl"):
+    """A stand-in for a ``parallel.mesh.Mesh``: its axes, shape and backend."""
+    from easy_gaussian_splatting_torch.parallel.mesh import parse_mesh_shape
+
+    sizes = parse_mesh_shape(shape)
+    return SimpleNamespace(axis_names=tuple(sizes), shape=tuple(sizes.values()), backend=backend)
+
+
+def test_graph_signature_changes_with_the_batch_and_the_mesh():
+    """A graphed step's key is ``step_signature``'s plus the batch size and
+    the mesh (its axes and shape, the stripe partition and interleave): each
+    changes the key, and the same values give the same key."""
+    cfg = config_from_dict(CFG)
+    args = (cfg, 1024, H, W, 3)
+    single = graphs.graph_signature(*args)
+    assert single[:-2] == graphs.step_signature(*args) and single[-2:] == (0, None)
+    keys = [single, graphs.graph_signature(*args, batch=4), graphs.graph_signature(*args, batch=2)]
+    for shape in ("tiles:1", "tiles:2", "gauss:2", "gauss:1,tiles:2", "gauss:2,tiles:1"):
+        key = graphs.graph_signature(*args, mesh=_mesh(shape))
+        assert key == graphs.graph_signature(*args, mesh=_mesh(shape)), shape
+        keys.append(key)
+    for name, value in (("stripe_partition", "uniform"), ("stripe_interleave", 2)):
+        assert getattr(cfg, name) != value
+        keys.append(graphs.graph_signature(dataclasses.replace(cfg, **{name: value}), 1024, H, W,
+                                           3, mesh=_mesh("tiles:2")))
+    assert len(set(keys)) == len(keys), keys
+
+
+def test_graphed_programs_refuse_the_cpu_and_gloo():
+    """The batched and sharded graphed steps and ``Programs`` run on the card
+    only, and a gloo mesh is refused wherever it runs (its collectives wait
+    on the host)."""
+    cfg = config_from_dict(CFG)
+    render_fn = ttrainer.get_render_fn(cfg)
+    batched = ttrainer.make_batched_train_step(cfg, render_fn)
+    sharded = ttrainer.make_mesh_train_step(cfg, _mesh("tiles:2"), render_fn)
+    with pytest.raises(ValueError, match="CUDA device only"):
+        graphs.GraphedTrainStep(cfg, batched, "cpu")
+    with pytest.raises(ValueError, match="CUDA device only"):
+        graphs.GraphedTrainStep(cfg, sharded, "cpu", mesh=_mesh("tiles:2"))
+    with pytest.raises(ValueError, match="CUDA device only"):
+        graphs.Programs("cpu", 2, "the eval's frame program")
+    with pytest.raises(ValueError, match="a gloo world cannot be captured"):
+        graphs.GraphedTrainStep(cfg, sharded, "cuda", mesh=_mesh("gauss:2", "gloo"))
+
+
 # ------------------------------------------------------------- the CPU
 def test_graphed_step_and_render_refuse_the_cpu():
     """A graph runs on the card only: on the CPU both raise, never falling
@@ -219,7 +265,7 @@ def test_graphed_step_and_render_refuse_the_cpu():
     cfg = config_from_dict(CFG)
     render_fn = ttrainer.get_render_fn(cfg)
     with pytest.raises(ValueError, match="CUDA device only"):
-        graphs.GraphedTrainStep(cfg, render_fn, "cpu")
+        graphs.GraphedTrainStep(cfg, ttrainer.make_train_step(cfg, render_fn), "cpu")
     with pytest.raises(ValueError, match="CUDA device only"):
         GraphedRender(lambda mult: render_fn, torch.zeros(3))
     with pytest.raises(ValueError, match="CUDA device only"):
@@ -317,12 +363,12 @@ def test_graphed_step_equals_eager(cuda, rng):
     frame = [torch.as_tensor(x, device=cuda) for x in (w2c, K, image, mask)]
     want = _five_steps(ttrainer.make_train_step(cfg, render_fn),
                        *torch_state(arrays, alive, cuda), frame, cfg, cuda)
-    graphed = graphs.GraphedTrainStep(cfg, render_fn, cuda)
+    graphed = graphs.GraphedTrainStep(cfg, ttrainer.make_train_step(cfg, render_fn), cuda)
     got = _five_steps(graphed, *torch_state(arrays, alive, cuda), frame, cfg, cuda)
     assert got[-1]["param.means"].shape[0] > CAP, "the densify event did not grow the capacity"
     for i, (g, w) in enumerate(zip(got, want)):
         assert_bitwise(g, w)
-    assert [c["signature"][0] for c in graphed.captures] == [CAP, got[-1]["param.means"].shape[0]]
+    assert [c["key"][0] for c in graphed.captures] == [CAP, got[-1]["param.means"].shape[0]]
     assert all(c["capture_ms"] > 0 and c["pool_bytes"] >= 0 for c in graphed.captures)
 
 
@@ -333,7 +379,8 @@ def test_replay_adds_the_recorded_launches(cuda, rng):
     arrays, alive, w2c, K, image, mask = scene_arrays(rng)
     cfg = config_from_dict(CFG)
     frame = [torch.as_tensor(x, device=cuda) for x in (w2c, K, image, mask)]
-    graphed = graphs.GraphedTrainStep(cfg, ttrainer.get_render_fn(cfg), cuda)
+    graphed = graphs.GraphedTrainStep(
+        cfg, ttrainer.make_train_step(cfg, ttrainer.get_render_fn(cfg)), cuda)
     model, adam = torch_state(arrays, alive, cuda)
     kw = dict(height=H, width=W, sh_degree=3)
     before = graphs.launch_counts()
@@ -411,11 +458,11 @@ def test_graphed_step_keeps_a_program_per_frame_size(cuda, rng):
         return out
 
     want = run(ttrainer.make_train_step(cfg, render_fn))
-    graphed = graphs.GraphedTrainStep(cfg, render_fn, cuda)
+    graphed = graphs.GraphedTrainStep(cfg, ttrainer.make_train_step(cfg, render_fn), cuda)
     got = run(graphed)
     for g, w in zip(got, want):
         assert_bitwise(g, w)
-    assert [c["signature"][1:3] for c in graphed.captures] == sizes
+    assert [c["key"][1:3] for c in graphed.captures] == sizes
 
 
 @pytest.mark.cuda

@@ -393,8 +393,9 @@ def test_eval_latency_chain_replays_a_cuda_graph(cuda, rng):
     """The evaluator's device latency captures its chain of renders in one
     CUDA graph (each render records one ``binkeys`` and one
     ``tiled_forward`` launch into it) and times a replay; ``StepTimer`` on
-    the card reads CUDA events. Both give finite positive times, and the
-    renderer still runs eagerly after the capture."""
+    the card reads CUDA events. Both give finite positive times, the
+    launch counters count the two replays' renders (the capture launches
+    nothing), and the renderer still runs eagerly after the capture."""
     from types import SimpleNamespace
 
     from easy_gaussian_splatting_torch.evaluation.evaluator import LATENCY_CHAIN, Evaluator
@@ -423,7 +424,8 @@ def test_eval_latency_chain_replays_a_cuda_graph(cuda, rng):
     eager = ev._render(model, data, 3, bg)
     before = (bk.launches, tr.launches)
     ms = ev._chain_ms(model, data, 3, bg)
-    assert (bk.launches, tr.launches) == (before[0] + LATENCY_CHAIN, before[1] + LATENCY_CHAIN)
+    assert (bk.launches, tr.launches) == (before[0] + 2 * LATENCY_CHAIN,
+                                          before[1] + 2 * LATENCY_CHAIN)
     assert np.isfinite(ms) and ms > 0
     assert torch.equal(ev._render(model, data, 3, bg), eager)
     timer = StepTimer(cuda)

@@ -283,3 +283,99 @@ def join_sum(value):
     dist.all_reduce(x)
     return dict(sum=float(x[0]), world=dist.get_world_size(), rank=dist.get_rank(),
                 backend=str(dist.get_backend()))
+
+
+def flag_steps(shape, cfg_kw, arrays, alive, stats, adam, cam, sh_degree, lr_means, flags):
+    """The sharded step (``trainer.make_mesh_train_step``) from one state for
+    each (do_stats, skip_all, skip_opac) in ``flags``, three ways: host
+    flags and learning rate returning new tensors (``host``), 0-d tensors
+    (``tensor``), 0-d tensors with ``in_place`` (``in_place``); each run's
+    gathered state and loss dict, and whether the in-place step returned the
+    tensors it was given."""
+    from easy_gaussian_splatting_torch.parallel import gauss_shard
+    from easy_gaussian_splatting_torch.training.graphs import state_leaves
+    from easy_gaussian_splatting_torch.training.trainer import make_mesh_train_step
+
+    mesh, cfg, rf, gauss = _setup(shape, cfg_kw)
+    w2c, K, image, mask = _cam(cam)
+    h, w = image.shape[:2]
+    step = make_mesh_train_step(cfg, mesh, rf)
+    out = []
+    for fl in flags:
+        runs = {}
+        for mode in ("host", "tensor", "in_place"):
+            # copies: a state may share memory with the arrays it came from
+            model = _model({k: v.copy() for k, v in arrays.items()}, alive.copy(),
+                           {k: v.copy() for k, v in stats.items()})
+            mu, nu, steps = adam
+            adam_s = _adam(({k: v.copy() for k, v in mu.items()},
+                            {k: v.copy() for k, v in nu.items()}, steps))
+            if gauss:
+                model = gauss_shard.shard_state(model, mesh)
+                adam_s = gauss_shard.shard_state(adam_s, mesh)
+            scalars = ((lr_means,) + tuple(fl) if mode == "host"
+                       else (torch.tensor(lr_means),) + tuple(torch.tensor(f) for f in fl))
+            given = state_leaves(model, adam_s)
+            m, a, ld = step(model, adam_s, w2c, K, image, mask, *scalars, height=h, width=w,
+                            sh_degree=sh_degree, in_place=mode == "in_place")
+            same = all(x is y for x, y in zip(state_leaves(m, a), given))
+            if gauss:
+                m, a = gauss_shard.gather_state(m, mesh), gauss_shard.gather_state(a, mesh)
+            runs[mode] = dict(state=_state_np(m, a), ld={k: _np(v) for k, v in ld.items()},
+                              same_tensors=same)
+        out.append(runs)
+    return out
+
+
+def train_eager_log(shape, arrays, frame, seed):
+    """``train()`` for two steps under ``shape`` on the CPU, from a
+    one-camera scene: the trainer's log lines (rank 0 alone logs) and
+    whether a ``GraphedTrainStep`` was built."""
+    import logging
+    from types import SimpleNamespace
+
+    from easy_gaussian_splatting_torch.training import trainer
+    from easy_gaussian_splatting_torch.training.config import config_from_dict
+
+    class OneCamera:
+        pc = SimpleNamespace(xyzs=arrays["xyzs"], rgbs=arrays["rgbs"],
+                             nbr_points=arrays["xyzs"].shape[0])
+
+        def nbr_data(self, split):
+            return 2 if split == "train" else 0
+
+        def get_data(self, split, index):
+            return dict(frame)
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    built = []
+    graphed = trainer.GraphedTrainStep
+
+    def refuse(*a, **k):
+        built.append(k)
+        return graphed(*a, **k)
+
+    lines = Lines()
+    log = logging.getLogger("easy_gaussian_splatting_torch")
+    log.addHandler(lines)
+    log.setLevel(logging.INFO)
+    trainer.GraphedTrainStep = refuse
+    try:
+        random.seed(seed)
+        np.random.seed(seed)
+        cfg = config_from_dict(dict(renderer="tiled", tile_size=16, total_iterations=2,
+                                    refine_start=1000, sh_degree_interval=0,
+                                    data_device_cache=False, dataloader_workers=0,
+                                    mesh_shape=shape, initial_capacity=64))
+        loop = trainer.train(cfg, scene=OneCamera(), device="cpu")
+    finally:
+        trainer.GraphedTrainStep = graphed
+        log.removeHandler(lines)
+    return dict(lines=lines.lines, built=len(built), step=loop.step)
