@@ -195,7 +195,29 @@ and then through the JAX package's other jitted programs as CUDA graphs
    (a)); then (after phase 16 (b)) ``train(cfg)`` under ``tiles:1`` and
    ``gauss:1`` on phase 13 (a)'s scene on one NCCL rank (graphed, its
    replays profiled) against one gloo rank (eager, logged so): losses and
-   final state bit for bit.
+   final state bit for bit;
+
+and then through the programs over the live train state (the graphed
+step's buffers taken by reference: the refine event, the opacity reset,
+the intersection counters, the eval's frame) and the capture ahead of need
+(``training/precompile.py``):
+
+19. (after phase 18 (c)) ``train(cfg)`` on phase 13 (a)'s scene with a
+   schedule of four refine events, an opacity reset, two SH bumps and
+   two evals in 45 steps, at a capacity a probe run chose so that an event
+   past the first grows it: (a) the refine programs eager (the port
+   before: also the evaluator's own copy of the model), graphed, and
+   graphed with the capture ahead, every loss, every event's counts, every
+   intersection count the trainer read and the final state's digest bit
+   for bit; each event's wall time in the three runs, the growth's, and
+   each program's capture and pool; (b) each eval's peak allocated memory,
+   the copying evaluator against the programs that share the step's pool
+   and read its buffers: lower by at least the copy, 236 B a slot; (c) the
+   first step of the grown capacity and of an SH bump replays a program
+   captured ahead (``ahead``), capturing nothing, beside the graphed run's
+   first steps, which captured; no warm failed; (d) (in 18 (c)'s runs) the
+   NCCL rank's graphed densify and striped counter against gloo's eager
+   ones: every event's counts and every intersection count equal.
 
 Then one JSON line of the seven kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
@@ -205,8 +227,9 @@ three, ``launches_served`` the viewer's build and requests of phase 5,
 ``launches_batched`` phase 14's 10 timed batched steps,
 ``launches_eval_cli`` phase 15's eval (graphed), ``launches_mesh`` rank
 0's sharded calls and ``train()`` runs of phase 16,
-``launches_batched_graphed`` phase 18 (a)'s graphed batched runs and
-``launches_mesh_graphed`` phase 18 (c)'s graphed ``train()`` runs.
+``launches_batched_graphed`` phase 18 (a)'s graphed batched runs,
+``launches_mesh_graphed`` phase 18 (c)'s graphed ``train()`` runs and
+``launches_refine`` phase 19's graphed run.
 ``ms``, ``plain_ms``, ``bound_ms`` and ``max_abs_err`` come from the served
 800x800 frame for binkeys and tiled_forward, and from the first train
 step for the others; ``library_ms`` is null where no one PyTorch call
@@ -221,6 +244,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import gc
 import io
 import json
 import math
@@ -1007,11 +1031,26 @@ def replays(step, model, height: int, width: int, sh_degree: int) -> bool:
     from easy_gaussian_splatting_torch.training.graphs import graph_signature
 
     sig = graph_signature(step.cfg, model.capacity, height, width, sh_degree, mesh=step.mesh)
-    return (step._state is not None and step._state[0].shape[0] == model.capacity
-            and sig in step._programs.entries)
+    return (step.state is not None and step.state[0].shape[0] == model.capacity
+            and sig in step.programs.entries)
 
 
-def train_recorded(cfg, scene, device, profile=(), keep: bool = False):
+class Delegate:
+    """A call wrapped around ``obj``: calling it calls ``call``; the
+    attributes in ``over`` are its own, any other is ``obj``'s."""
+
+    def __init__(self, obj, call, **over):
+        self._obj, self._call = obj, call
+        self.__dict__.update(over)
+
+    def __call__(self, *a, **k):
+        return self._call(*a, **k)
+
+    def __getattr__(self, name):
+        return getattr(self._obj, name)
+
+
+def train_recorded(cfg, scene, device, profile=(), keep: bool = False, profile_events=()):
     """The port's ``train()`` with each step timed (host clock between two
     synchronizes, and CUDA events through ``StepTimer`` in ``rec["timer"]``),
     its launches, loss, intersections and capacity recorded, and the
@@ -1021,27 +1060,67 @@ def train_recorded(cfg, scene, device, profile=(), keep: bool = False):
     step's (``make_mesh_train_step``). A graphed step numbered in
     ``profile`` that replays (captures nothing) runs under the profiler,
     outside its timing: the launches of each kernel it saw are the step's
-    ``measured`` (:func:`check_replays` holds them to the counters). With
+    ``measured`` (:func:`check_replays` holds them to the counters); an
+    event after a step numbered in ``profile_events`` runs under the profiler
+    (its ``measured``, ``records`` and counted ``launches`` in its record,
+    the growth inside a refine event in the refine event's window). With
     ``keep`` the graphed steps keep their programs when ``train()`` resets
-    them (at its end), for the caller to replay."""
+    them (at its end), for the caller to replay. The refine events (their
+    counts), the opacity resets and the intersection counts (the values
+    the trainer read) are recorded in ``rec["events"]`` in order, each
+    with its wall ms between two synchronizes, and each step's
+    ``captured``: the step programs captured in its call."""
     import torch
 
+    from easy_gaussian_splatting_torch.ops import rasterize_tiled
     from easy_gaussian_splatting_torch.ops.rasterize_tiled import isect_capacity
+    from easy_gaussian_splatting_torch.parallel import gauss_shard, shard
     from easy_gaussian_splatting_torch.training import trainer as ttrainer
     from easy_gaussian_splatting_torch.utils.profiling import StepTimer
 
     timer = StepTimer(device)
-    rec = {"steps": [], "densify": 0, "reset": 0, "timer": timer, "graphed": []}
+    rec = {"steps": [], "densify": 0, "reset": 0, "timer": timer, "graphed": [], "events": []}
     make_orig = ttrainer.make_train_step
     mesh_orig = ttrainer.make_mesh_train_step
     graphed_orig = ttrainer.GraphedTrainStep
     densify_orig = ttrainer.run_densify_with_growth
     sharded_orig = ttrainer.run_sharded_densify_with_growth
-    reset_orig = ttrainer.reset_opacities
+    reset_orig = ttrainer.make_reset_step
+    counted_orig = ttrainer.counted_isects
+    counter_orig = rasterize_tiled.make_isect_counter
+    striped_orig = shard.make_striped_isect_counter
+    grow_sharded_orig = gauss_shard.grow_state_sharded
+    in_program = [False]  # a counter called while a program over the state captures it
+
+    depth = [0]  # events inside an event (a growth inside a refine event)
+
+    def event(kind, fn, *a, **k):
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                out = fn(*a, **k)
+            finally:
+                depth[0] -= 1
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        step, seen = len(rec["steps"]), {}
+        if step in profile_events and depth[0] == 0:
+            before = counts()
+            (out, ms), prof = profiled(run)
+            seen = dict(measured=kernel_launches(prof), records=device_records(prof),
+                        launches={n: v - before[n] for n, v in counts().items()})
+        else:
+            out, ms = run()
+        rec["events"].append(dict(kind=kind, step=step, ms=ms, **seen))
+        return out
 
     def timed(step, mult, graphed=None):
         def call(model, adam, *a, **k):
             before = counts()
+            caps = 0 if graphed is None else len(graphed.captures)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             timer.start()
@@ -1050,7 +1129,8 @@ def train_recorded(cfg, scene, device, profile=(), keep: bool = False):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             after = counts()
-            return out, dict(ms=ms, start=t0, launches={n: after[n] - before[n] for n in after})
+            return out, dict(ms=ms, start=t0, launches={n: after[n] - before[n] for n in after},
+                             captured=0 if graphed is None else len(graphed.captures) - caps)
 
         def run(model, adam, *a, **k):
             n = len(rec["steps"]) + 1
@@ -1065,6 +1145,7 @@ def train_recorded(cfg, scene, device, profile=(), keep: bool = False):
             rec["steps"].append(dict(
                 st, loss=float(ld["total"]), isects=int(ld["isects"]),
                 cap=isect_capacity(model.capacity, mult), capacity=model.capacity,
+                sh=k["sh_degree"],
             ))
             return out
 
@@ -1086,28 +1167,70 @@ def train_recorded(cfg, scene, device, profile=(), keep: bool = False):
         # it captures the step itself: a timed one synchronizes
         step = graphed_orig(cfg_, step.step, dev, **kw)
         rec["graphed"].append(step)
-        run = timed(step, cfg_.isect_mult, step)
-        run.reset = (lambda: None) if keep else step.reset
-        return run
+        # the call timed; the rest of the step (its state, programs, capture
+        # ahead) reached through it, the growth timed, a retune's eager step
+        # the timed one's
+        return Delegate(step, timed(step, cfg_.isect_mult, step),
+                        reset=(lambda: None) if keep else step.reset,
+                        grown=lambda *a: event("grow", step.grown, *a),
+                        use=lambda fn: step.use(fn.step))
 
     def densify(*a, **k):
         rec["densify"] += 1
-        return densify_orig(*a, **k)
+        info = event("densify", densify_orig, *a, **k)
+        rec["events"][-1]["info"] = info
+        return info
 
     def sharded_densify(*a, **k):
         rec["densify"] += 1
-        return sharded_orig(*a, **k)
+        info = event("densify", sharded_orig, *a, **k)
+        rec["events"][-1]["info"] = info
+        return info
 
-    def reset(*a, **k):
-        rec["reset"] += 1
-        return reset_orig(*a, **k)
+    def make_reset(*a, **k):
+        step = reset_orig(*a, **k)
+
+        def reset(*aa, **kk):
+            rec["reset"] += 1
+            return event("reset", step, *aa, **kk)
+
+        return reset
+
+    def counted(*a, **k):
+        in_program[0] = True
+        try:
+            out = event("isects", counted_orig, *a, **k)
+        finally:
+            in_program[0] = False
+        rec["events"][-1]["counts"] = out.cpu().tolist()
+        return out
+
+    def counter_of(make):
+        def made(*a, **k):
+            counter = make(*a, **k)
+
+            def count(*aa, **kk):
+                if in_program[0]:
+                    return counter(*aa, **kk)
+                out = event("isects", counter, *aa, **kk)
+                rec["events"][-1]["counts"] = out.cpu().tolist()
+                return out
+
+            return count
+
+        return made
 
     with swapped(ttrainer, "make_train_step", make), \
             swapped(ttrainer, "make_mesh_train_step", make_mesh), \
             swapped(ttrainer, "GraphedTrainStep", make_graphed), \
             swapped(ttrainer, "run_densify_with_growth", densify), \
             swapped(ttrainer, "run_sharded_densify_with_growth", sharded_densify), \
-            swapped(ttrainer, "reset_opacities", reset):
+            swapped(ttrainer, "make_reset_step", make_reset), \
+            swapped(ttrainer, "counted_isects", counted), \
+            swapped(rasterize_tiled, "make_isect_counter", counter_of(counter_orig)), \
+            swapped(shard, "make_striped_isect_counter", counter_of(striped_orig)), \
+            swapped(gauss_shard, "grow_state_sharded",
+                    lambda *a: event("grow", grow_sharded_orig, *a)):
         loop = ttrainer.train(cfg, scene=scene, device=device)
     return loop, rec
 
@@ -3560,6 +3683,12 @@ def mesh_graph_train_job(rank, scene_dir, out_dir, seed):
         res[shape] = dict(
             losses=[st["loss"] for st in rec["steps"]], digest=digest, densify=rec["densify"],
             capacity=loop.model.capacity, eager_lines=lines.lines, launches=launches,
+            reads=[(e["kind"], e["step"], e.get("info"), e.get("counts"))
+                   for e in rec["events"] if e["kind"] in ("densify", "isects")],
+            event_ms=[(e["kind"], e["step"], e["ms"]) for e in rec["events"]],
+            programs=[(c["key"][0], c["key"][1], c["capture_ms"], c["pool_bytes"])
+                      for g in rec["graphed"] for c in g.programs.captures
+                      if isinstance(c["key"][0], str)],
             captures=[(c["key"][0], c["capture_ms"]) for g in rec["graphed"]
                       for c in g.captures],
             step_ms=float(np.median([st["ms"] for st in rec["steps"][2:14]])))
@@ -3634,11 +3763,330 @@ def mesh_graph_training(scene_dir: Path, card: str) -> dict:
               and "gloo collectives" in g["eager_lines"][0],
               f"[18] (c) train() under {shape}: eager lines NCCL {n['eager_lines']}, gloo "
               f"{g['eager_lines']}")
+        # phase 19 (d): the refine event and the (striped) counter as programs
+        # over the NCCL rank's state, against gloo's eager ones
+        kinds = collections.Counter(k for k, *_ in n["programs"])
+        log(f"[19] (d) train() under {shape}, one NCCL rank (densify and the striped counter "
+            f"graphed) vs one gloo rank (eager): every event's counts and every intersection "
+            f"count the trainer read " + ("equal bit for bit" if n["reads"] == g["reads"]
+                                          else "DIFFER") + f" ({len(n['reads'])} reads); "
+            f"NCCL programs over the state: " + ", ".join(
+                f"{k} {c} ({m:.1f} ms, pool +{b / 2**20:.0f} MiB)" for k, c, m, b in n["programs"])
+            + "; event wall ms NCCL / gloo: " + ", ".join(
+                f"{a[0]} {a[1]}: {a[2]:.1f} / {b[2]:.1f}"
+                for a, b in zip(n["event_ms"], g["event_ms"])))
+        check(n["reads"] == g["reads"] and kinds["densify"] >= 1 and kinds["isects"] >= 1,
+              f"[19] (d) train() under {shape}: NCCL reads {n['reads']} vs gloo {g['reads']}, "
+              f"programs {dict(kinds)}")
         for k in launches:
             launches[k] += n["launches"][k]
     check(all(launches[k] > 0 for k in MESH_KERNELS),
           f"[18] (c) a main-path kernel never launched under the graphed mesh: {launches}")
     return launches
+
+
+# ----------------------------------------------------------------- phase 19
+# phase 13 (a)'s scene and configs/tandt_db.yaml with a schedule that puts
+# four refine events (steps 10, 20, 30, 40), an opacity reset (40, after
+# the last event: a reset lowers the intersection count, and the next
+# event's check would tune the binning again, which drops every program,
+# those captured ahead too), two SH bumps (20, 40) and evals at steps 1 and
+# 30 in 45 steps; the capacity is chosen from a probe run so that one
+# event past the first grows it and the events before do not
+REFINE_SCHEDULE = dict(
+    total_iterations=45, sh_degree_interval=20, refine_start=0, refine_every=10,
+    reset_opacities_every=40, eval_every=30, eval_render_num=1, profile_steps=0,
+    save_model_iterations=[], log_every=10,
+)
+REFINE_PROBE_STEPS = 41  # the probe: every event, none of them growing
+# (name, the refine programs graphed, the capture ahead, the evaluator's
+# programs shared with the step's): the port before this slice (refine
+# eager, the evaluator's own copy of the model), then graphed, then graphed
+# with the capture ahead
+REFINE_RUNS = (("eager", False, False, False), ("graphed", True, False, True),
+               ("precompiled", True, True, True))
+REFINE_KINDS = ("densify", "reset", "isects", "frame", "lpips")
+# the precompiled run's steps whose replays, and the events after which,
+# run under the profiler (the third and fourth refine events, their
+# counters and the reset), and its eval (by index) that does: step 30's
+REFINE_PROFILED = {30, 31, 40}
+REFINE_PROFILED_EVAL = 1
+
+
+def refine_run(scene_dir: Path, out_dir: Path, graph_refine: bool, precompile: bool,
+               shared_eval: bool, profile=(), **overrides) -> dict:
+    """One phase-19 ``train(cfg)`` run: ``REFINE_SCHEDULE`` on phase 13
+    (a)'s scene, the refine programs graphed or eager (``graph_refine``
+    False swaps the trainer's densify and reset steps and its counter
+    program for the eager functions), the capture ahead on or off
+    (``precompile`` False swaps ``StepPrecompiler`` for one that captures
+    nothing), the evaluator's programs the step's (``shared_eval``) or its
+    own with a copy of the model (the port before). ``profile`` names the
+    steps whose replays, and the events after which, run under the
+    profiler (``train_recorded``). Returns its steps, events (with wall
+    ms), the final state's digest, every capture of a program over the
+    state, the precompiler's records, each eval's peak allocated memory
+    above the run's start and the capacity it ran at, the run's peak, and
+    the launches."""
+    import random
+
+    import torch
+
+    from easy_gaussian_splatting_torch.evaluation import evaluator as ev
+    from easy_gaussian_splatting_torch.training import precompile as pc
+    from easy_gaussian_splatting_torch.training import trainer as tt
+    from easy_gaussian_splatting_torch.training.config import load_config
+    from easy_gaussian_splatting_torch.training.graphs import state_from
+
+    cfg = load_config(REPO / "configs" / "tandt_db.yaml", **dict(REFINE_SCHEDULE, **overrides),
+                      data=str(scene_dir), output=str(out_dir))
+    peaks, made, run_peak = [], [], [0]
+    evaluate_orig, init_orig = ev.Evaluator.evaluate, ev.Evaluator.__init__
+    densify_orig, reset_orig = tt.make_densify_step, tt.make_reset_step
+
+    def evaluate(self, scene, split, model, *a, **k):
+        torch.cuda.synchronize()
+        run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated() - start)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() - start
+        seen, launched = None, counts()
+        if profile and len(peaks) == REFINE_PROFILED_EVAL:
+            out, prof = profiled(lambda: evaluate_orig(self, scene, split, model, *a, **k))
+            seen = kernel_launches(prof)
+        else:
+            out = evaluate_orig(self, scene, split, model, *a, **k)
+        torch.cuda.synchronize()
+        peaks.append(dict(peak=torch.cuda.max_memory_allocated() - start, before=before,
+                          capacity=model.capacity, measured=seen,
+                          launches={n: v - launched[n] for n, v in counts().items()}))
+        return out
+
+    def own_copy(self, num, render_fn, programs=None):  # the port before: a copy of its own
+        init_orig(self, num, render_fn)
+
+    class Recorded(pc.StepPrecompiler):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    class Off(Recorded):  # the capture ahead off: every step captures at its first use
+        def warm(self, *a, **k):
+            return None
+
+    def eager_counted(graphed, counter, cfg_, w2c, K, *, height, width, mesh=None):
+        model = state_from(graphed.state)[0]
+        return counter(model.params, model.alive, w2c, K, height=height, width=width)
+
+    random.seed(cfg.random_seed)
+    np.random.seed(cfg.random_seed)
+    gc.collect()  # an earlier run's tensors freed now, not inside this one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    zero_counts()
+    with contextlib.ExitStack() as stack:
+        if not graph_refine:
+            stack.enter_context(swapped(tt, "make_densify_step",
+                                        lambda cfg_, graphed=None: densify_orig(cfg_)))
+            stack.enter_context(swapped(tt, "make_reset_step",
+                                        lambda cfg_, graphed=None: reset_orig(cfg_)))
+            stack.enter_context(swapped(tt, "counted_isects", eager_counted))
+        stack.enter_context(swapped(pc, "StepPrecompiler", Recorded if precompile else Off))
+        stack.enter_context(swapped(ev.Evaluator, "evaluate", evaluate))
+        if not shared_eval:
+            stack.enter_context(swapped(ev.Evaluator, "__init__", own_copy))
+        t0 = time.perf_counter()
+        loop, rec = train_recorded(cfg, None, DEVICE, profile, profile_events=profile)
+        secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    run_peak[0] = max(run_peak[0], torch.cuda.max_memory_allocated() - start)
+    launches = counts()
+    check(rec["graphed"], "[19] train() did not run the graphed step")
+    step = rec["graphed"][0]
+    digest = state_digest(loop.model, loop.adam, {}).cpu().numpy()
+    out = dict(steps=rec["steps"], events=rec["events"], digest=digest, secs=secs,
+               captures=list(step.programs.captures), peaks=peaks, launches=launches,
+               capacity=loop.model.capacity, alive=loop.model.num_alive(),
+               warmed=made[0].warmed if made else [], failures=made[0].failures if made else [],
+               losses=[st["loss"] for st in rec["steps"]], peak=run_peak[0])
+    del loop, rec, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _alive_after_events(run) -> list:
+    """(step, alive count, the intersection count the trainer read after the
+    event) of each densify event of a run, and the autotune's count."""
+    events, out, tuned = run["events"], [], None
+    for i, e in enumerate(events):
+        if e["kind"] == "isects" and tuned is None:
+            tuned = e["counts"][0]
+        if e["kind"] == "densify":
+            after = next((x["counts"][0] for x in events[i + 1:] if x["kind"] == "isects"), None)
+            out.append((e["step"], e["info"]["nbr_gaussians"], after))
+    return out, tuned
+
+
+def refine_programs(scene_dir: Path, card: str) -> dict:
+    """Phase 19: the refine-event programs over the live state and the
+    capture ahead, in ``train(cfg)`` on phase 13 (a)'s scene. A probe run
+    at the config's capacity gives each event's population and the
+    intersection count the trainer reads after it; the capacity is set so
+    that event k (the first past the first whose population grew and whose
+    count did not fall below the autotune's, so the binning is not tuned
+    again on the grown state) grows it and none before does. Then the runs
+    of ``REFINE_RUNS``: (a) eager and graphed refine programs bit for bit
+    (losses, every event's counts, every count the trainer read, the final
+    state's digest), each event's wall time in both and each program's
+    capture and pool; (b) the evals' peak memory, the evaluator's copy
+    (eager run) against the shared programs (graphed run), lower by at least
+    236 B a slot; (c) with the capture ahead, the growth's and the SH
+    bumps' first steps capture nothing, their programs captured ahead
+    (``ahead``) at earlier steps, and their wall times beside the graphed
+    run's, which captured at first use; no warm failed."""
+    t0 = time.perf_counter()
+    probe = refine_run(scene_dir, RUN_DIR / "train19_probe", True, False, True,
+                       total_iterations=REFINE_PROBE_STEPS, eval_every=1000)
+    after, tuned = _alive_after_events(probe)
+    log(f"[19] probe ({REFINE_PROBE_STEPS} steps at capacity {probe['steps'][0]['capacity']}, "
+        f"{time.perf_counter() - t0:.1f} s): the autotune read {tuned} intersections; after each "
+        "event (step, gaussians, intersections): " + ", ".join(map(str, after)))
+    pick = [j for j in range(1, len(after))
+            if after[j][1] > max(a[1] for a in after[:j]) + 1000
+            and after[j][2] is not None and after[j][2] >= tuned]
+    check(pick, f"[19] no event past the first grew the population past the events before it "
+          f"with an intersection count at or above the autotune's: {after}, {tuned}")
+    j = pick[0]
+    lo = max(a[1] for a in after[:j])
+    capacity = int((lo + after[j][1]) / 2 / 0.85) // 64 * 64
+    log(f"[19] initial_capacity {capacity}: the event at step {after[j][0]} grows it "
+        f"({lo} <= 0.85 x {capacity} < {after[j][1]})")
+    runs = {}
+    for name, graph_refine, precompile, shared_eval in REFINE_RUNS:
+        runs[name] = refine_run(scene_dir, RUN_DIR / f"train19_{name}", graph_refine, precompile,
+                                shared_eval, REFINE_PROFILED if name == "precompiled" else (),
+                                initial_capacity=capacity)
+    log(f"[19] card: {card}; configs/tandt_db.yaml with " + json.dumps(REFINE_SCHEDULE)
+        + f", initial_capacity {capacity}; runs " + ", ".join(
+            f"{n} {r['secs']:.1f} s" for n, r in runs.items()))
+    eager, graphed, pre = runs["eager"], runs["graphed"], runs["precompiled"]
+    caps = [st["capacity"] for st in graphed["steps"]]
+    grow_step = next((i + 1 for i in range(1, len(caps)) if caps[i] != caps[i - 1]), None)
+    check(grow_step is not None and grow_step - 1 == after[j][0] and caps[0] == capacity,
+          f"[19] the capacity grew at step {grow_step}, want after step {after[j][0]}: {caps}")
+
+    # every line first, then the checks (one run shows every miss)
+    bad = []
+
+    def want(ok: bool, msg: str) -> None:
+        if not ok:
+            bad.append(msg)
+
+    # (a) graphed against eager, bit for bit
+    def reads(run):
+        return [(e["kind"], e["step"], e.get("info"), e.get("counts")) for e in run["events"]
+                if e["kind"] in ("densify", "isects")]
+
+    for name in ("graphed", "precompiled"):
+        r = runs[name]
+        same = (r["losses"] == eager["losses"] and reads(r) == reads(eager)
+                and np.array_equal(r["digest"], eager["digest"]))
+        log(f"[19] (a) {name} against eager refine: every loss, every event's counts, every "
+            f"intersection count the trainer read and the final state's digest "
+            + ("equal bit for bit" if same else "DIFFER"))
+        want(same, f"(a) the {name} run differs from the eager one")
+    events = {n: [e for e in r["events"] if e["kind"] != "grow"] for n, r in runs.items()}
+    log("[19] (a) events (after step; wall ms between synchronizes, eager / graphed / "
+        "precompiled, * under the profiler): " + "; ".join(
+            f"{e['kind']} {e['step']}: " + " / ".join(
+                f"{events[n][i]['ms']:.2f}" + ("*" if "measured" in events[n][i] else "")
+                for n in ("eager", "graphed", "precompiled"))
+            for i, e in enumerate(events["eager"])))
+    grows = {n: [e for e in r["events"] if e["kind"] == "grow"] for n, r in runs.items()}
+    log("[19] (a) the growth (wall ms, eager one pass into new buffers / into the buffers "
+        "prepared ahead): " + ", ".join(
+            f"{n} " + " ".join(f"{e['ms']:.2f}" for e in g) for n, g in grows.items()))
+    progs = [c for c in graphed["captures"] if c["key"][0] in REFINE_KINDS]
+    log("[19] (a) programs over the state, graphed run: " + "; ".join(
+        f"{', '.join(map(str, c['key'][:2]))}: warm-up {c['warmup_ms']:.1f} ms, capture "
+        f"{c['capture_ms']:.1f} ms, pool +{c['pool_bytes'] / 2**20:.0f} MiB" for c in progs))
+    for kind in ("densify", "reset", "isects", "frame"):
+        want(any(c["key"][0] == kind for c in progs), f"(a) no {kind} program captured")
+    want(not any(c["key"][0] in ("densify", "reset", "isects") for c in eager["captures"]),
+         "(a) the eager run captured a refine program")
+    # the precompiled run's profiled replays: its steps, and the events and
+    # the eval whose programs replay over the state, seen by the profiler
+    # as the launch counters (which a replay adds from its capture) say
+    check_replays("19", {"steps": pre["steps"]}, PER_STEP)
+    windows = [(f"{e['kind']} after step {e['step']}", e["measured"], e["launches"])
+               for e in pre["events"] if "measured" in e]
+    windows += [(f"eval {i + 1}", p["measured"], p["launches"])
+                for i, p in enumerate(pre["peaks"]) if p["measured"] is not None]
+    lost = [w[0] for w in windows if lost_records(w[1], w[2])]
+    kinds = {w[0].split(" ")[0] for w in windows if w[0] not in lost}
+    log("[19] (a) profiled in the precompiled run (kernels seen / counted): " + "; ".join(
+        f"{w}: " + ", ".join(f"{k} {m[k]}/{c[k]}" for k in m if m[k] or c[k])
+        + (" (the profiler lost records)" if w in lost else "") for w, m, c in windows))
+    want(3 * len(lost) <= len(windows) and all(w[1] == w[2] for w in windows if w[0] not in lost)
+         and {"densify", "isects", "reset", "eval"} <= kinds
+         and all(w[1]["binkeys"] > 0 for w in windows if w[0].startswith(("isects", "eval"))),
+         f"(a) the profiled events and eval differ from the launch counters: {windows}")
+
+    # (b) the eval's peak memory: the evaluator's own copy against none
+    rows = []
+    for pe, pg in zip(eager["peaks"], graphed["peaks"]):
+        clone = 236 * pg["capacity"]
+        rows.append((pe, pg, clone))
+        want(pe["capacity"] == pg["capacity"] and pe["peak"] - pg["peak"] >= clone,
+             f"(b) eval peak {pg['peak']} not below the copying evaluator's {pe['peak']} by the "
+             f"copy's {clone} bytes")
+    want(len(rows) == 2, f"(b) {len(rows)} evals, want 2")
+    log("[19] (b) eval peak allocated above the run's start, MiB (capacity: copying evaluator, "
+        "the programs sharing the step's and reading its buffers, difference, the copy 236 B a "
+        "slot; allocated at the eval's start, copying / sharing): " + "; ".join(
+            f"{pg['capacity']}: {pe['peak'] / 2**20:.1f}, {pg['peak'] / 2**20:.1f}, "
+            f"{(pe['peak'] - pg['peak']) / 2**20:.1f}, {k / 2**20:.1f}; "
+            f"{pe['before'] / 2**20:.1f} / {pg['before'] / 2**20:.1f}" for pe, pg, k in rows))
+
+    # (c) the capture ahead
+    want(not pre["failures"], f"(c) a capture ahead failed: {pre['failures']}")
+    sigs = [(st["capacity"], st["sh"]) for st in pre["steps"]]
+    firsts = [i for i in range(1, len(sigs)) if sigs[i] not in sigs[:i]]
+    ahead = {(c["key"][0], c["key"][3]) for c in pre["captures"]
+             if c["ahead"] and not isinstance(c["key"][0], str)}
+    lines, warmed_growth, warmed_sh = [], False, False
+    for i in firsts:
+        g, p = graphed["steps"][i], pre["steps"][i]
+        kind = "growth" if i + 1 == grow_step else "SH bump"
+        hit = p["captured"] == 0 and sigs[i] in ahead
+        warmed_growth |= hit and kind == "growth"
+        warmed_sh |= hit and kind == "SH bump"
+        lines.append(f"step {i + 1} ({kind}, capacity {sigs[i][0]}, sh {sigs[i][1]}): "
+                     f"precompiled {p['ms']:.1f} ms, {p['captured']} captured"
+                     f"{', captured ahead' if sigs[i] in ahead else ''}; graphed "
+                     f"{g['ms']:.1f} ms, {g['captured']} captured")
+    log("[19] (c) first steps of new signatures: " + "; ".join(lines))
+    log("[19] (c) captures ahead (key, wall ms, MiB held for the grown state): " + "; ".join(
+        f"capacity {w['key'][0]} sh {w['key'][3]}: {w['ms']:.1f} ms, "
+        f"{w['held_bytes'] / 2**20:.0f} MiB" for w in pre["warmed"]))
+    # net of the warms: the first steps' wall time saved against the warms
+    # paid on the loop's thread, and each run's peak allocated memory
+    first_g = sum(graphed["steps"][i]["ms"] for i in firsts)
+    first_p = sum(pre["steps"][i]["ms"] for i in firsts)
+    warm_ms = sum(w["ms"] for w in pre["warmed"])
+    log(f"[19] (c) net: the first steps of new signatures {first_g:.1f} ms graphed, "
+        f"{first_p:.1f} ms precompiled, plus {warm_ms:.1f} ms of {len(pre['warmed'])} warms: "
+        f"{first_g - first_p - warm_ms:+.1f} ms saved in the run; peak allocated above the "
+        "run's start: " + ", ".join(f"{n} {r['peak'] / 2**20:.0f} MiB" for n, r in runs.items()))
+    want(warmed_growth and warmed_sh, "(c) the growth's or an SH bump's program was not "
+         "captured ahead of its first step")
+    want(all(graphed["launches"][k] > 0 for k in MESH_KERNELS),
+         f"a main-path kernel never launched in the graphed run: {graphed['launches']}")
+    median = {n: float(np.median([st["ms"] for st in r["steps"][2:9]])) for n, r in runs.items()}
+    log("[19] (c) step medians (steps 3-9, host clock): " + ", ".join(
+        f"{n} {m:.2f} ms" for n, m in median.items()))
+    check(not bad, "[19] " + "; ".join(bad))
+    return graphed["launches"]
 
 
 # ------------------------------------------------------------------ main
@@ -4157,6 +4605,11 @@ def run(args) -> dict:
     torch.cuda.empty_cache()
     mesh_graphed = mesh_graph_training(scene_dir, card)
 
+    # ---- phase 19: the refine-event programs over the live state and the
+    # capture ahead, in train(cfg) on phase 13 (a)'s scene ((d) ran in 18 (c))
+    torch.cuda.empty_cache()
+    refine_launches = refine_programs(scene_dir, card)
+
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
         "tiled_forward": ("tile_forward.cu", "tile_raster.py:355", fw_err, fw_ms, fw_plain,
@@ -4175,7 +4628,8 @@ def run(args) -> dict:
              launches_eval_cli=eval_run["launches"][name],
              launches_mesh=mesh_launches[name],
              launches_batched_graphed=batched_g["launches"][name],
-             launches_mesh_graphed=mesh_graphed[name], max_abs_err=err,
+             launches_mesh_graphed=mesh_graphed[name],
+             launches_refine=refine_launches[name], max_abs_err=err,
              ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
         for name, (src, tpu, err, ms, plain, bound, by) in measured.items()
     ]
@@ -4193,7 +4647,8 @@ def run(args) -> dict:
             launches_eval_cli=eval_run["launches"][name],
             launches_mesh=mesh_launches[name],
             launches_batched_graphed=batched_g["launches"][name],
-            launches_mesh_graphed=mesh_graphed[name], max_abs_err=reduce_errs[name],
+            launches_mesh_graphed=mesh_graphed[name],
+            launches_refine=refine_launches[name], max_abs_err=reduce_errs[name],
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -18,13 +18,18 @@ CPU).
 On the card the frame is a compiled program, as the JAX evaluator jits
 it: one CUDA graph per ``(height, width, sh_degree, capacity)`` (render,
 ``composite_mask``, ``psnr``, ``ssim`` and the frame's intersection
-count), and LPIPS one per image size, all in one ``graphs.Programs``
-(``EVAL_GRAPHS``, one pool, one capture stream), replayed through
+count), and LPIPS one per image size, all in one ``graphs.Programs`` (one
+pool, one capture stream, ``EVAL_GRAPHS`` of each kind), replayed through
 ``Programs.run``. Each frame's camera, image and mask are copied into the
 program's buffers, and its outputs out of them before the next replay (the scalars, the composite for LPIPS, the
-kept render, the count). The programs read a model set of their own: a
-clone of the model, into which each ``evaluate`` copies the model it is
-given. The frame's capture and its warm-up replay happen before the FPS
+kept render, the count). The frame program reads its model by reference
+(``Programs.run``'s ``live``). By default the model is a set of the
+evaluator's own: a clone of the model, into which each ``evaluate``
+copies the model it is given (the ``eval`` command). Given ``programs``
+(``train()``'s: the graphed step's, over its pool) the evaluator keeps no
+copy: the programs join those and read the model each ``evaluate`` is
+given where it is (the step's buffers, updated in place by every step; a
+model at other addresses is captured again). The frame's capture and its warm-up replay happen before the FPS
 window opens; ``latency_ms`` times a blocking replay (the JAX evaluator
 times its jitted frame). A render function with a ``record`` method
 (``eval.CountingRender``) is handed each replayed frame's count, the only
@@ -67,19 +72,24 @@ def _sync(device: torch.device) -> None:
 
 
 class Evaluator:
-    def __init__(self, eval_render_num: int, render_fn: Callable):
+    def __init__(self, eval_render_num: int, render_fn: Callable, programs=None):
         self.eval_render_num = eval_render_num
         self.render_fn = render_fn
         self.lpips = get_lpips()  # "vgg" (pretrained) or "proxy" (seeded)
-        self._programs = None  # graphs.Programs, made at the first evaluate on the card
-        self._model = None  # the programs' model set: params in PARAM_NAMES order, then alive
+        # graphs.Programs: given (shared, the model read by reference), or
+        # made at the first evaluate on the card (a model set of its own)
+        self._programs = programs
+        self._shared = programs is not None
+        self._model = None  # the own programs' model set: params in PARAM_NAMES order, then alive
 
     def invalidate(self, render_fn: Callable | None = None) -> None:
         """Swap in the trainer's rebuilt render function (after a capacity
         autotune or growth); the programs captured over the old one go."""
         if render_fn is not None:
             self.render_fn = render_fn
-        if self._programs is not None:
+        if self._shared:
+            self._programs.drop(("frame", "lpips"))
+        elif self._programs is not None:
             self._programs.reset()
 
     def _programs_on(self, device: torch.device):
@@ -109,33 +119,41 @@ class Evaluator:
         return out.image, comp, psnr(comp, data["image"]), ssim(data["image"], comp), out.num_isects
 
     def _take(self, model):
-        """``model``'s params and alive copied into the programs' model set
-        (a new set, and no programs, for another capacity); the set as a
-        model."""
-        from types import SimpleNamespace
-
-        from ..models.gaussians import PARAM_NAMES, GaussianParams
+        """The frame programs' model set: ``model``'s params and alive (by
+        reference with shared programs; else copied into the evaluator's
+        own set, a new one, and no programs, for another capacity)."""
+        from ..models.gaussians import PARAM_NAMES
         from ..training.graphs import copy_in
 
         leaves = [getattr(model.params, n) for n in PARAM_NAMES] + [model.alive]
+        if self._shared:
+            return leaves
         if self._model is None or self._model[0].shape != leaves[0].shape:
             self._programs.reset()
             self._model = [t.detach().clone() for t in leaves]
         copy_in(self._model, leaves)
-        return SimpleNamespace(params=GaussianParams(**dict(zip(PARAM_NAMES, self._model[:-1]))),
-                               alive=self._model[-1])
+        return self._model
 
     def _frame_program(self, model_set, data, sh_degree, background):
-        """The captured frame of ``data``'s size over ``model_set``, replayed
-        on ``data``'s camera, image and mask (and ``background``)."""
+        """The captured frame of ``data``'s size over ``model_set`` (taken by
+        reference), replayed on ``data``'s camera, image and mask (and
+        ``background``)."""
+        from types import SimpleNamespace
+
+        from ..models.gaussians import PARAM_NAMES, GaussianParams
+
         width, height = data["width"], data["height"]
+        n = len(_FRAME) + 1
 
         def frame(bufs):
-            return self._frame(model_set, dict(zip(_FRAME, bufs), width=width, height=height),
-                               sh_degree, bufs[-1])
+            model = SimpleNamespace(params=GaussianParams(**dict(zip(PARAM_NAMES, bufs[n:-1]))),
+                                    alive=bufs[-1])
+            return self._frame(model, dict(zip(_FRAME, bufs), width=width, height=height),
+                               sh_degree, bufs[n - 1])
 
-        key = ("frame", height, width, sh_degree, model_set.alive.shape[0])
-        return self._programs.run(key, frame, [data[k] for k in _FRAME] + [background])
+        key = ("frame", height, width, sh_degree, model_set[-1].shape[0])
+        return self._programs.run(key, frame, [data[k] for k in _FRAME] + [background],
+                                  live=model_set)
 
     def _lpips(self, comp: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
         """LPIPS of a pair: eager, or on the card the replay of the program

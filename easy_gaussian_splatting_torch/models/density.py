@@ -5,8 +5,11 @@ Everything works on the fixed-capacity buffers, as in the JAX package:
 clones and splits are written into free slots found by cumsum ranking and
 scatter, "removal" clears the alive bit, and a free-slot overflow is
 reported so the host grows capacity and retries. The split noise comes from
-a ``torch.Generator`` (or an explicit ``noise`` tensor, so that tests can
-feed both packages the same numbers).
+a ``torch.Generator`` (or an explicit ``noise`` tensor: the trainer's
+graphed refine event draws it from the run's generator into its input
+buffer, and tests feed both packages the same numbers). Nothing here reads a
+device value on the host, so a CUDA graph holds an event and a reset
+(``training/trainer.py::densify_event`` and ``reset_event``).
 """
 
 from __future__ import annotations
@@ -54,15 +57,20 @@ def update_statistics(
 
 
 def _scatter_set(base: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
-    """``base.at[idx].set(values, mode="drop")``: out-of-range entries of
-    ``idx`` are dropped (torch's indexing would raise on them)."""
-    keep = (idx >= 0) & (idx < base.shape[0])
-    out = base.clone()
+    """``base.at[idx].set(values, mode="drop")`` for distinct in-range
+    entries of ``idx``: the out-of-range ones write a spare last row, cut
+    off after, so no index is read back on the host (torch's indexing would
+    raise on them, and selecting them would size a tensor from the data,
+    which a CUDA graph cannot hold)."""
+    n = base.shape[0]
+    keep = (idx >= 0) & (idx < n)
+    out = torch.cat([base, base[:1]])
+    where = torch.where(keep, idx, n)
     if isinstance(values, torch.Tensor):
-        out[idx[keep]] = values[keep]
-    else:
-        out[idx[keep]] = values
-    return out
+        out[where] = values
+    else:  # a number: no tensor made of it (a copy a graph cannot hold)
+        out.index_fill_(0, where, values)
+    return out[:n]
 
 
 def _take_fill(table: torch.Tensor, idx: torch.Tensor, fill: int) -> torch.Tensor:

@@ -130,7 +130,7 @@ def init_gaussian_state(
     if capacity < n:
         raise ValueError(f"capacity {capacity} < number of points {n}")
 
-    dists = knn_dists(np.asarray(xyzs, np.float32), k=3)
+    dists = knn_dists(np.asarray(xyzs, np.float32), k=3, device=dev)
     avg_dist = dists.mean(axis=1, keepdims=True)
     scales = np.repeat(avg_dist, 3, axis=1) / 2.0
     log_scales = np.log(np.maximum(scales, 1e-12))
@@ -162,23 +162,32 @@ def init_gaussian_state(
     return GaussianModelState(params=params, alive=alive, stats=zero_stats(capacity, dev))
 
 
-def grow_capacity(state: GaussianModelState, new_capacity: int) -> GaussianModelState:
+def grow_capacity(state: GaussianModelState, new_capacity: int,
+                  out: GaussianModelState | None = None) -> GaussianModelState:
     """Re-pad every buffer to a larger capacity: new rows are dead, zero,
-    with identity quats."""
+    with identity quats. Each leaf is written in one pass into a tensor
+    allocated once, or into ``out``'s (a state of ``new_capacity``)."""
     old = state.capacity
     if new_capacity <= old:
         raise ValueError(f"new capacity {new_capacity} <= current {old}")
-    extra = new_capacity - old
 
-    def pad(x):
-        return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))], dim=0)
+    def new(x):
+        return x.new_empty((new_capacity,) + tuple(x.shape[1:]))
 
-    quats = state.params.quats
-    ident = quats.new_zeros((extra, 4))
-    ident[:, 0] = 1.0
-    params = state.params.map(pad)
-    params.quats = torch.cat([quats, ident], dim=0)
-    return GaussianModelState(params=params, alive=pad(state.alive), stats=state.stats.map(pad))
+    if out is None:
+        out = GaussianModelState(params=state.params.map(new), alive=new(state.alive),
+                                 stats=state.stats.map(new))
+    elif out.capacity != new_capacity:
+        raise ValueError(f"out has capacity {out.capacity}, not {new_capacity}")
+    srcs = [getattr(state.params, n) for n in PARAM_NAMES] + [state.alive] + [
+        getattr(state.stats, f.name) for f in dataclasses.fields(DensifyStats)]
+    dsts = [getattr(out.params, n) for n in PARAM_NAMES] + [out.alive] + [
+        getattr(out.stats, f.name) for f in dataclasses.fields(DensifyStats)]
+    for src, dst in zip(srcs, dsts):
+        dst[:old].copy_(src)
+        dst[old:].zero_()
+    out.params.quats[old:, 0] = 1.0
+    return out
 
 
 def compact_capacity(

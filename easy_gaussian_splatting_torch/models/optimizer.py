@@ -135,10 +135,23 @@ def permute_adam_state(state: AdamState, perm: torch.Tensor) -> AdamState:
     return AdamState(mu=state.mu.map(take), nu=state.nu.map(take), steps=state.steps)
 
 
-def grow_adam_state(state: AdamState, extra: int) -> AdamState:
-    """Pad moment buffers for capacity growth (new rows zero)."""
+def grow_adam_state(state: AdamState, extra: int, out: AdamState | None = None) -> AdamState:
+    """Pad moment buffers for capacity growth (new rows zero): each written
+    in one pass into a tensor allocated once, or into ``out``'s (an Adam
+    state ``extra`` rows larger, whose step counts take this state's)."""
+    old = state.mu.means.shape[0]
 
-    def pad(x):
-        return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))], dim=0)
+    def new(x):
+        return x.new_empty((old + extra,) + tuple(x.shape[1:]))
 
-    return AdamState(mu=state.mu.map(pad), nu=state.nu.map(pad), steps=state.steps)
+    if out is None:
+        out = AdamState(mu=state.mu.map(new), nu=state.nu.map(new), steps=state.steps)
+    else:
+        for name in PARAM_NAMES:
+            out.steps[name].copy_(state.steps[name])
+    for tree, dst_tree in ((state.mu, out.mu), (state.nu, out.nu)):
+        for name in PARAM_NAMES:
+            src, dst = getattr(tree, name), getattr(dst_tree, name)
+            dst[:old].copy_(src)
+            dst[old:].zero_()
+    return out

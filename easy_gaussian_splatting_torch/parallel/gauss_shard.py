@@ -28,7 +28,15 @@ from ..models.density import densify_and_prune
 from ..models.gaussians import PARAM_NAMES, GaussianModelState, GaussianParams, grow_capacity
 from ..models.optimizer import AdamState, grow_adam_state
 from ..training.config import Config
-from ..training.trainer import _apply_adam, grad_leaves, param_grads, update_stats
+from ..training.graphs import state_from
+from ..training.trainer import (
+    INFO_KEYS,
+    _apply_adam,
+    densify_event,
+    grad_leaves,
+    param_grads,
+    update_stats,
+)
 from . import collectives as col
 from .mesh import GAUSS_AXIS, TILE_AXIS
 from .shard import (
@@ -183,35 +191,64 @@ def shard_seed(seed: int, gauss_idx: int) -> int:
     return (seed + (gauss_idx + 1) * 0x9E3779B97F4A7C15) % 2**63
 
 
-def make_sharded_densify_step(dcfg, mesh):
+def make_sharded_densify_step(dcfg, mesh, graphed=None, max_capacity: int | None = None):
     """Densify and prune over Gaussian-sharded state: the single-device
     engine (``models/density.py``) on each shard, its children in the
     parent's own shard (slot position carries no meaning). ``step(model,
     adam, seed=None, noise=None) -> (model, adam, info, overflow)``: the
     split noise is this shard's ``noise`` [C/G, 3] when given, else drawn
-    from a generator seeded with ``shard_seed(seed, gauss_idx)``. Info
-    counts are summed over the gauss group and ``overflow`` is any
-    shard's, so every rank grows together."""
-    group_g, _, g_idx, _ = _gauss(mesh)
+    eagerly from a generator seeded with ``shard_seed(seed, gauss_idx)``.
+    Info counts are summed over the gauss group and ``overflow`` is any
+    shard's, so every rank grows together. With ``graphed`` (the NCCL
+    mesh's graphed step) the event is a program over its state, one per
+    shard capacity (``trainer.densify_event``, the two reductions inside
+    it), which keeps the overflowing event's state only at the largest
+    capacity ``max_capacity`` allows."""
+    group_g, n_gauss, g_idx, _ = _gauss(mesh)
 
-    def step(model, adam, seed: int | None = None, noise: torch.Tensor | None = None):
-        gen = None
-        if noise is None:
-            gen = torch.Generator(device=model.alive.device).manual_seed(shard_seed(seed, g_idx))
-        state, adam_new, info, overflow = densify_and_prune(model, adam, gen, dcfg, noise=noise)
-        keys = list(info)
-        sums = col.all_reduce(torch.stack([info[k].to(torch.int64) for k in keys]), group_g)
-        over = col.all_reduce(overflow.to(torch.int32).reshape(1), group_g, "max")[0] > 0
-        return state, adam_new, dict(zip(keys, sums.unbind())), over
+    def reduce(vals):
+        return torch.cat([col.all_reduce(vals[:1], group_g, "max"),
+                          col.all_reduce(vals[1:], group_g)])
 
-    return step
+    def shard_noise(model, seed):
+        gen = torch.Generator(device=model.alive.device).manual_seed(shard_seed(seed, g_idx))
+        return torch.randn((model.capacity, 3), generator=gen, dtype=torch.float32,
+                           device=model.alive.device)
+
+    def result(model, adam, vals):
+        return model, adam, dict(zip(INFO_KEYS, vals[1:].unbind())), vals[0] > 0
+
+    if graphed is None:
+        def step(model, adam, seed: int | None = None, noise: torch.Tensor | None = None):
+            noise = shard_noise(model, seed) if noise is None else noise
+            state, adam_new, info, overflow = densify_and_prune(model, adam, None, dcfg,
+                                                                noise=noise)
+            vals = reduce(torch.stack([overflow.to(torch.int64)]
+                                      + [info[k].to(torch.int64) for k in INFO_KEYS]))
+            return result(state, adam_new, vals)
+
+        return step
+
+    def graphed_step(model, adam, seed: int | None = None, noise: torch.Tensor | None = None):
+        model, adam = graphed.own(model, adam)
+        noise = shard_noise(model, seed) if noise is None else noise
+        total = model.capacity * n_gauss
+        grown = min(total * 2, max_capacity)
+        keep = grown - grown % n_gauss <= total
+        vals = graphed.replay(("densify", model.capacity, keep),
+                              densify_event(dcfg, keep, reduce), [noise]).out
+        return result(*state_from(graphed.state), vals)
+
+    return graphed_step
 
 
 def grow_state_sharded(state, adam, new_capacity: int, mesh):
     """Grow the (global) capacity with per-shard padding: each shard gains
     ``(new_capacity - capacity) / G`` dead slots (zero, identity quats, zero
     moments), so shard-local densification stays balanced. ``state`` and
-    ``adam`` are this rank's shards; returns the grown shards."""
+    ``adam`` are this rank's shards; returns the grown shards, each leaf
+    written in one pass into a tensor allocated once. It runs once a
+    capacity, so it stays eager (a graph of it would replay once)."""
     n = mesh.axis_size(GAUSS_AXIS)
     old = state.capacity * n
     if new_capacity % n or new_capacity <= old:

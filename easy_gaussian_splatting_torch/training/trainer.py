@@ -7,11 +7,17 @@ prune with that step's weight update skipped; scalars are read back a few
 steps late so the host never waits on the card. On the card (with no mesh,
 or on an NCCL mesh) the step runs as a CUDA graph, one per static
 signature, over buffers it updates in place (``graphs.GraphedTrainStep``,
-the counterpart of the JAX step's ``jax.jit`` with donation): a new
-capacity, SH degree or binning retune captures a new graph at its first
-step, where the JAX trainer compiles ahead in a background thread. On the
-CPU and on a gloo mesh (whose collectives cannot be captured) the step runs
-eagerly, and ``train()`` logs why at its start.
+the counterpart of the JAX step's ``jax.jit`` with donation), and so do
+the refine event, the opacity reset and the intersection counters
+(``densify_event``, ``reset_event``, ``counted_isects``: programs over
+the step's buffers, taken by reference) and the eval's frame, whose
+programs join the step's. A new capacity, SH degree or binning retune
+captures a new step graph at its first step, unless the capture ahead
+(``precompile.StepPrecompiler``, without a mesh) took it at the points
+where the JAX trainer compiles ahead. On the CPU and on a gloo mesh (whose
+collectives cannot be captured) everything runs eagerly, and ``train()``
+logs why at its start; capacity compaction and a growth nothing was
+prepared for stay eager everywhere, as in the JAX package.
 ``EGS_TORCH_LOOP_TIMING=1`` logs the loop's wall time in buckets every 100
 steps, as ``EGS_TPU_LOOP_TIMING`` does.
 
@@ -73,14 +79,12 @@ from ..models.gaussians import (
     GaussianParams,
     _round_up_capacity,
     compact_capacity,
-    grow_capacity,
     init_gaussian_state,
 )
 from ..models.loss import loss_dict
 from ..models.optimizer import (
     AdamState,
     adam_update,
-    grow_adam_state,
     init_adam_state,
     permute_adam_state,
     select,
@@ -88,7 +92,8 @@ from ..models.optimizer import (
 from ..models.render import CameraView, render
 from ..ops.lr_schedule import log_lerp_schedule
 from .config import Config
-from .graphs import GraphedTrainStep
+from .graphs import GraphedTrainStep, grow_state, state_from, state_leaves, write_back
+from .precompile import growth_near, growth_targets, sh_bump_due
 
 logger = logging.getLogger(__name__)
 
@@ -405,13 +410,133 @@ def _dcfg(cfg: Config) -> DensifyConfig:
     )
 
 
-def make_densify_step(cfg: Config):
+# the refine event's counts, in the order of its program's output (after
+# the overflow flag)
+INFO_KEYS = ("split", "clone", "prune_low_opacity", "prune_large_radii", "prune_large_scale",
+             "nbr_gaussians")
+
+def densify_event(dcfg: DensifyConfig, keep_overflow: bool, reduce: Callable | None = None):
+    """The refine event as a program over the state's buffers
+    (``GraphedTrainStep.replay``): ``fn([noise] + leaves, write)`` runs
+    :func:`densify_and_prune` on the buffers with the given split noise,
+    returns ``[overflow, *info]`` as int64 (``INFO_KEYS`` order; ``reduce``
+    makes them the mesh's: overflow any shard's, info summed) and, after
+    every read, writes the event's state into the buffers
+    (``graphs.write_back``) where ``write`` holds and the event did not
+    overflow, or did at ``keep_overflow`` (the largest capacity, where the
+    excess is dropped): on an overflow below it the buffers keep the
+    pre-event state, which the host grows and retries on."""
+
+    def event(bufs, write):
+        model, adam = state_from(bufs[1:])
+        new_model, new_adam, info, overflow = densify_and_prune(model, adam, None, dcfg,
+                                                                noise=bufs[0])
+        vals = torch.stack([overflow.to(torch.int64)] + [info[k].to(torch.int64)
+                                                         for k in INFO_KEYS])
+        if reduce is not None:
+            vals = reduce(vals)
+        k = len(PARAM_NAMES)  # the step counts, which an event leaves
+        write_back(write & ((vals[0] == 0) | keep_overflow), state_leaves(model, adam)[:-k],
+                   state_leaves(new_model, new_adam)[:-k])
+        return vals
+
+    return event
+
+
+def reset_event(min_opacity: float):
+    """The opacity reset as a program over the state's buffers
+    (``GraphedTrainStep.replay``; the counterpart of JAX's
+    ``donate_argnums=(0, 1)``): :func:`reset_opacities` on the buffers, its
+    opacities and the opacity group's Adam moments written in place."""
+
+    def event(bufs, write):
+        model, adam = state_from(bufs)
+        new_model, new_adam = reset_opacities(model, adam, min_opacity)
+        name = "logit_opacities"
+        write_back(write, [getattr(t, name) for t in (model.params, adam.mu, adam.nu)],
+                   [getattr(t, name) for t in (new_model.params, new_adam.mu, new_adam.nu)])
+
+    return event
+
+
+def event_values(info: Dict[str, torch.Tensor], overflow: torch.Tensor):
+    """A refine event's overflow flag and counts on the host, read with one
+    copy."""
+    vals = torch.stack([overflow.reshape(()).to(torch.int64)]
+                       + [info[k].reshape(()).to(torch.int64) for k in INFO_KEYS]).tolist()
+    return bool(vals[0]), dict(zip(INFO_KEYS, vals[1:]))
+
+
+def make_densify_step(cfg: Config, graphed: GraphedTrainStep | None = None):
+    """``densify_step(model, adam, generator) -> (model, adam, info,
+    overflow)``: :func:`densify_and_prune` run eagerly, or with ``graphed``
+    (the run's graphed step) a program over its state, one per capacity
+    (:func:`densify_event`): the split noise drawn eagerly from
+    ``generator`` into the program's input buffer (the graph holds no
+    generator state, so a retry restores the generator as the eager event
+    does), the returned state the step's buffers."""
     dcfg = _dcfg(cfg)
+    if graphed is None:
+        def densify_step(model, adam, generator):
+            return densify_and_prune(model, adam, generator, dcfg)
+
+        return densify_step
 
     def densify_step(model, adam, generator):
-        return densify_and_prune(model, adam, generator, dcfg)
+        model, adam = graphed.own(model, adam)
+        cap = model.capacity
+        noise = torch.randn((cap, 3), generator=generator, dtype=torch.float32,
+                            device=model.alive.device)
+        keep = cap >= cfg.max_capacity
+        vals = graphed.replay(("densify", cap, keep), densify_event(dcfg, keep), [noise]).out
+        model, adam = state_from(graphed.state)
+        return model, adam, dict(zip(INFO_KEYS, vals[1:].unbind())), vals[0] > 0
 
     return densify_step
+
+
+def make_reset_step(cfg: Config, graphed: GraphedTrainStep | None = None):
+    """``reset_step(model, adam) -> (model, adam)``: :func:`reset_opacities`
+    run eagerly, or with ``graphed`` a program over its state that rewrites
+    the opacities and their Adam moments in place (:func:`reset_event`)."""
+    if graphed is None:
+        return lambda model, adam: reset_opacities(model, adam, cfg.min_opacity)
+
+    def reset_step(model, adam):
+        model, adam = graphed.own(model, adam)
+        graphed.replay(("reset", model.capacity), reset_event(cfg.min_opacity))
+        return state_from(graphed.state)
+
+    return reset_step
+
+
+def counted_isects(graphed: GraphedTrainStep, counter: Callable, cfg: Config, w2c, K, *,
+                   height: int, width: int, mesh=None) -> torch.Tensor:
+    """``counter`` (``make_isect_counter``'s, or under ``mesh``
+    ``make_striped_isect_counter``'s, built with ``cfg``'s binning knobs) as
+    a program over ``graphed``'s state, keyed on the capacity, the frame
+    size and those knobs (and the mesh's stripe partition and interleave);
+    under a gauss axis the shards are gathered inside it. Returns its counts
+    (the program's output: read them before the next replay)."""
+    where = () if mesh is None else (cfg.stripe_partition, cfg.stripe_interleave)
+    key = ("isects", graphed.state[0].shape[0], height, width, cfg.tile_size, cfg.max_tiles,
+           cfg.ov_frac, cfg.small_budget) + where
+    gather = None
+    if mesh is not None:
+        from ..parallel.mesh import GAUSS_AXIS
+
+        if GAUSS_AXIS in mesh.axis_names:
+            from ..parallel.gauss_shard import gather_state
+
+            gather = functools.partial(gather_state, mesh=mesh)
+
+    def count(bufs, write):
+        model = state_from(bufs[2:])[0]
+        if gather is not None:
+            model = gather(model)
+        return counter(model.params, model.alive, bufs[0], bufs[1], height=height, width=width)
+
+    return graphed.replay(key, count, [w2c, K]).out
 
 
 @dataclasses.dataclass
@@ -429,22 +554,26 @@ def run_densify_with_growth(
     densify_step,
     generator: torch.Generator,
     cfg: Config,
+    grow: Callable = grow_state,
 ) -> Dict[str, int]:
     """Run a densify event; on free-slot overflow, grow capacity (x2) and
-    retry on the pre-event state with the same split noise."""
+    retry on the pre-event state with the same split noise. The overflow
+    flag and the counts come to the host in one copy. ``grow(model, adam,
+    capacity)`` grows a state (``GraphedTrainStep.grown`` grows into
+    buffers prepared ahead)."""
     gen_state = generator.get_state()
     while True:
         generator.set_state(gen_state)
         new_model, new_adam, info, overflow = densify_step(loop.model, loop.adam, generator)
-        if not bool(overflow):
-            n = int(info["nbr_gaussians"])
+        overflow, info = event_values(info, overflow)
+        if not overflow:
+            n = info["nbr_gaussians"]
             cap = loop.model.capacity
             # pre-emptive growth: keep >= 15% headroom for the next event
             if n > 0.85 * cap and cap < cfg.max_capacity:
                 new_cap = min(cap * 2, cfg.max_capacity)
                 logger.info(f"growing capacity {cap} -> {new_cap} ({n} gaussians alive)")
-                loop.model = grow_capacity(new_model, new_cap)
-                loop.adam = grow_adam_state(new_adam, new_cap - cap)
+                loop.model, loop.adam = grow(new_model, new_adam, new_cap)
             else:
                 # compact only when the 1.3x-headroom target is at most
                 # half the capacity (a softer threshold oscillates between
@@ -456,16 +585,15 @@ def run_densify_with_growth(
                     loop.adam = permute_adam_state(new_adam, perm)
                 else:
                     loop.model, loop.adam = new_model, new_adam
-            return {k: int(v) for k, v in info.items()}
+            return info
         cap = loop.model.capacity
         if cap >= cfg.max_capacity:
             logger.warning(f"densify overflow at max capacity {cap}; dropping excess")
             loop.model, loop.adam = new_model, new_adam
-            return {k: int(v) for k, v in info.items()}
+            return info
         new_cap = min(cap * 2, cfg.max_capacity)
         logger.info(f"densify overflow: growing capacity {cap} -> {new_cap}")
-        loop.model = grow_capacity(loop.model, new_cap)
-        loop.adam = grow_adam_state(loop.adam, new_cap - cap)
+        loop.model, loop.adam = grow(loop.model, loop.adam, new_cap)
 
 
 def run_sharded_densify_with_growth(
@@ -480,7 +608,8 @@ def run_sharded_densify_with_growth(
     shard (``grow_state_sharded``, aligned to the shard count) and retry on
     the pre-event state with the same noise. Capacity compaction is skipped
     (it would need a global permutation), as in the JAX trainer. The info
-    and overflow are summed over the shards, so every rank decides alike."""
+    and overflow are summed over the shards, so every rank decides alike,
+    and come to the host in one copy."""
     from ..parallel.gauss_shard import grow_state_sharded
     from ..parallel.mesh import GAUSS_AXIS
 
@@ -493,21 +622,22 @@ def run_sharded_densify_with_growth(
     seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
     while True:
         new_model, new_adam, info, overflow = sharded_densify_step(loop.model, loop.adam, seed)
+        overflow, info = event_values(info, overflow)
         cap = loop.model.capacity * n_shards
         new_cap = aligned(min(cap * 2, cfg.max_capacity))
-        if not bool(overflow):
-            n = int(info["nbr_gaussians"])
+        if not overflow:
+            n = info["nbr_gaussians"]
             if n > 0.85 * cap and new_cap > cap:
                 logger.info(f"growing capacity {cap} -> {new_cap} ({n} gaussians alive, "
                          f"{n_shards} shards)")
                 loop.model, loop.adam = grow_state_sharded(new_model, new_adam, new_cap, mesh)
             else:
                 loop.model, loop.adam = new_model, new_adam
-            return {k: int(v) for k, v in info.items()}
+            return info
         if new_cap <= cap:
             logger.warning(f"densify overflow at max capacity {cap}; dropping excess")
             loop.model, loop.adam = new_model, new_adam
-            return {k: int(v) for k, v in info.items()}
+            return info
         logger.info(f"densify overflow: growing capacity {cap} -> {new_cap} ({n_shards} shards)")
         loop.model, loop.adam = grow_state_sharded(loop.model, loop.adam, new_cap, mesh)
 
@@ -594,16 +724,16 @@ def train(
                 "with fresh Adam moments (a warm start, not an exact continuation)"
             )
             adam = init_adam_state(model.params)
-        logger.info(
-            f"resumed from {resume_from} at step {start_step} ({model.num_alive()} gaussians)"
-        )
+        alive = model.num_alive()
+        logger.info(f"resumed from {resume_from} at step {start_step} ({alive} gaussians)")
         loop = TrainLoopState(model=model, adam=adam, active_sh_degree=sh_deg, step=start_step)
     else:
         capacity = cfg.initial_capacity if cfg.initial_capacity > 0 else None
         model = init_gaussian_state(
             scene.pc.xyzs, scene.pc.rgbs, cfg.sh_degree, capacity=capacity, device=dev
         )
-        logger.info(f"initialized {scene.pc.nbr_points} gaussians (capacity {model.capacity})")
+        alive = scene.pc.nbr_points
+        logger.info(f"initialized {alive} gaussians (capacity {model.capacity})")
         loop = TrainLoopState(
             model=model,
             adam=init_adam_state(model.params),
@@ -633,15 +763,21 @@ def train(
 
     def new_train_step() -> None:
         """The step over the current ``render_fn`` (after a binning retune);
-        the old graph and its pool go first."""
+        a graphed step keeps the state's buffers and drops its programs."""
         nonlocal train_step
-        if graphed and train_step is not None:
-            train_step.reset()
         step = (make_train_step(cfg, render_fn) if mesh is None
                 else make_mesh_train_step(cfg, mesh, render_fn))
-        train_step = GraphedTrainStep(cfg, step, dev, mesh=mesh) if graphed else step
+        if not graphed:
+            train_step = step
+        elif train_step is None:
+            train_step = GraphedTrainStep(cfg, step, dev, mesh=mesh)
+        else:
+            train_step.use(step)
 
     new_train_step()
+    # the refine event, the opacity reset and the counters: programs over
+    # the graphed step's state (its buffers by reference), or eager
+    refine = train_step if graphed else None
 
     # intersection-capacity watchdog for the tiled renderer: if the binned
     # count nears isect_mult * capacity, deep tiles would be truncated
@@ -674,11 +810,14 @@ def train(
 
     def count_isects(data):
         w2c, K = _frame_tensors(data, dev, ("w2c", "K"))
-        model = full_state(loop.model)
-        vals = isect_counter(
-            model.params, model.alive, w2c, K, height=data["height"], width=data["width"],
-        )
-        return vals.cpu().numpy()
+        height, width = data["height"], data["width"]
+        if refine is None:
+            model = full_state(loop.model)
+            vals = isect_counter(model.params, model.alive, w2c, K, height=height, width=width)
+            return vals.cpu().numpy()
+        loop.model, loop.adam = refine.own(loop.model, loop.adam)
+        return counted_isects(refine, isect_counter, cfg, w2c, K, height=height, width=width,
+                              mesh=mesh).cpu().numpy()
 
     def autotune_isect_mult(data):
         """Size the intersection capacity from the first frame's count (it
@@ -773,14 +912,28 @@ def train(
             evaluator.invalidate(render_fn)
         maybe_grow_isect_mult(n, loop.step)
 
-    densify_step = make_densify_step(cfg)
+    densify_step = make_densify_step(cfg, refine)
+    reset_step = make_reset_step(cfg, refine)
+    grow = train_step.grown if graphed else grow_state
     if gauss:
-        sharded_densify_step = gauss_shard.make_sharded_densify_step(_dcfg(cfg), mesh)
+        sharded_densify_step = gauss_shard.make_sharded_densify_step(
+            _dcfg(cfg), mesh, refine, cfg.max_capacity)
     means_lr = log_lerp_schedule(
         cfg.means_lr_init, cfg.means_lr_final, cfg.means_lr_schedule_max_steps
     )
-    evaluator = Evaluator(cfg.eval_render_num, render_fn)
+    # graphed, the eval's programs join the step's (one pool) and read the
+    # model they are given by reference: no copy of the model is kept
+    evaluator = Evaluator(cfg.eval_render_num, render_fn,
+                          programs=train_step.programs if graphed else None)
     generator = torch.Generator(device=dev).manual_seed(cfg.random_seed)
+    # the capture ahead of need: capacity growths and SH-degree bumps give
+    # the graphed step a new signature; capture the next program before its
+    # first step (without a mesh, as the JAX trainer's precompiler)
+    precompiler = None
+    if graphed and mesh is None:
+        from .precompile import StepPrecompiler
+
+        precompiler = StepPrecompiler(train_step)
 
     tb_writer = None
     if cfg.output is not None and rank0:
@@ -950,9 +1103,22 @@ def train(
                 info = run_sharded_densify_with_growth(loop, sharded_densify_step, generator,
                                                        cfg, mesh)
             else:
-                info = run_densify_with_growth(loop, densify_step, generator, cfg)
+                info = run_densify_with_growth(loop, densify_step, generator, cfg, grow)
             # on the grown population, so the next step's capacity covers it
             check_isect_capacity(data)
+            if precompiler is not None:
+                # the next doubling (grown at 0.85 of the capacity; named
+                # from 0.55), with the next SH degree when its bump may come
+                # first, captured once the growth is near; a prepared
+                # capacity the rule no longer names goes
+                targets = growth_targets(cfg, info["nbr_gaussians"], loop.model.capacity,
+                                         loop.active_sh_degree)
+                precompiler.settle({c for c, _ in targets})
+                if growth_near(alive, info["nbr_gaussians"], loop.model.capacity):
+                    for cap_t, sh_t in targets:
+                        precompiler.warm(cfg, loop.model, loop.adam, data["height"],
+                                         data["width"], sh_t, cap_t, frame=(w2c, K, image, mask))
+            alive = info["nbr_gaussians"]
             all_tb_info["train/densify"] = {"split": info["split"], "clone": info["clone"]}
             all_tb_info["train/prune"] = {
                 "low_opacity": info["prune_low_opacity"],
@@ -962,8 +1128,12 @@ def train(
             all_tb_info["train/nbr_gaussians"] = info["nbr_gaussians"]
         _bucket("densify")
         if reset_now:
-            loop.model, loop.adam = reset_opacities(loop.model, loop.adam, cfg.min_opacity)
+            loop.model, loop.adam = reset_step(loop.model, loop.adam)
 
+        if precompiler is not None and sh_bump_due(cfg, step, loop.active_sh_degree):
+            precompiler.warm(cfg, loop.model, loop.adam, data["height"], data["width"],
+                             loop.active_sh_degree + 1, loop.model.capacity,
+                             frame=(w2c, K, image, mask))
         if cfg.sh_degree_interval != 0 and step % cfg.sh_degree_interval == 0:
             loop.active_sh_degree = min(loop.active_sh_degree + 1, cfg.sh_degree)
 
@@ -993,6 +1163,8 @@ def train(
             viewer.update_render_image()
 
     _drain_losses(min_pending=0)
+    if precompiler is not None:
+        precompiler.shutdown()
     if graphed:
         train_step.reset()  # the returned state is its buffers, which stay
     if profiler is not None:  # the run ended inside the window
