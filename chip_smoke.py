@@ -219,6 +219,24 @@ the intersection counters, the eval's frame) and the capture ahead of need
    NCCL rank's graphed densify and striped counter against gloo's eager
    ones: every event's counts and every intersection count equal.
 
+and then through the port's benchmark entry point:
+
+20. (a) ``python -m easy_gaussian_splatting_torch.bench`` as a subprocess,
+   the whole matrix (100k, 1M and 3M Gaussians at 800x800, then 100k at
+   B = 4): exit 0, its last line the root ``bench.py``'s keys with no
+   ``error`` and every point's keys, ``backend`` the card (the bench
+   itself fails a point on a second capture or a truncated step); each
+   point's line (capture, peak allocated and reserved memory) and its
+   step, it/s, intersections, bound and share of it printed;
+   (b) the 100k points (B = 1 and 4) again in process through
+   ``bench_point``, their launches exactly the counter's, the warm-up
+   calls' and the replays', then stepped again with replays under the
+   profiler: B of each main-path kernel a replay, as the counters say,
+   and one capture; (c) the four main-path kernels against their plain
+   versions on the bench's own inputs: the first warm-up call of the 3M
+   point (4,194,304 slots) and of the 100k point at B = 4, with the
+   limits of phases 4 and 8.
+
 Then one JSON line of the seven kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
 for the first four and that of its reduction in phase 11 for the other
@@ -228,12 +246,15 @@ three, ``launches_served`` the viewer's build and requests of phase 5,
 ``launches_eval_cli`` phase 15's eval (graphed), ``launches_mesh`` rank
 0's sharded calls and ``train()`` runs of phase 16,
 ``launches_batched_graphed`` phase 18 (a)'s graphed batched runs,
-``launches_mesh_graphed`` phase 18 (c)'s graphed ``train()`` runs and
-``launches_refine`` phase 19's graphed run.
+``launches_mesh_graphed`` phase 18 (c)'s graphed ``train()`` runs,
+``launches_refine`` phase 19's graphed run and ``launches_bench`` phase 20
+(b)'s two ``bench_point`` runs.
 ``ms``, ``plain_ms``, ``bound_ms`` and ``max_abs_err`` come from the served
 800x800 frame for binkeys and tiled_forward, and from the first train
 step for the others; ``library_ms`` is null where no one PyTorch call
-computes the function.
+computes the function. ``max_abs_err_bench`` is phase 20 (c)'s largest
+difference from the plain version at the bench's points (null for the
+three reduction-only kernels, which the bench does not run).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; any failed
 phase exits non-zero before it.
@@ -774,9 +795,18 @@ def profile_device(fn, reps: int, what: str, tag: str, top: int = 14) -> dict:
             break
         log(f"[{tag}] {reps} {what}s profiled: the profiler lost records ({seen} of {counted}); "
             "measured again")
+    check_measured(tag, f"{reps} {what}s profiled", seen, counted)
+    log(f"[{tag}] the profiler saw " + ", ".join(f"{k} {v}" for k, v in seen.items() if v)
+        + f" over {reps} {what}s, equal to the launch counters' increments")
+    return dict(device_time(prof, reps, wall_ms, what, tag, top), launches=seen)
+
+
+def device_time(prof, reps: int, wall_ms: float, what: str, tag: str, top: int = 14) -> dict:
+    """The device time ``prof`` recorded over ``reps`` calls that took
+    ``wall_ms`` in all: busy and wall ms a call, the idle share, and the
+    ``top`` device activities by time, logged."""
     from torch.autograd import DeviceType
 
-    check_measured(tag, f"{reps} {what}s profiled", seen, counted)
     rows = [  # device-side events only (kernels, copies), not the host ops
         (e.self_device_time_total / 1e3, e.count, e.key)
         for e in prof.key_averages()
@@ -784,10 +814,7 @@ def profile_device(fn, reps: int, what: str, tag: str, top: int = 14) -> dict:
     ]
     rows = [r for r in rows if r[0] > 0]
     busy = sum(r[0] for r in rows)
-    out = dict(busy_ms=busy / reps, wall_ms=wall_ms / reps, idle_share=1 - busy / wall_ms,
-               launches=seen)
-    log(f"[{tag}] the profiler saw " + ", ".join(f"{k} {v}" for k, v in seen.items() if v)
-        + f" over {reps} {what}s, equal to the launch counters' increments")
+    out = dict(busy_ms=busy / reps, wall_ms=wall_ms / reps, idle_share=1 - busy / wall_ms)
     if not rows:
         log(f"[{tag}] profile: no device time recorded")
         return out
@@ -941,7 +968,7 @@ def check_backward(call, tag: str = "8"):
     return float(err.max()), plain_ms
 
 
-def check_segsum(call, capacity: int) -> float:
+def check_segsum(call, capacity: int, tag: str = "8") -> float:
     """Kernel against plain version on the recorded call, at the rows the
     consumer reads (each live Gaussian's first row): within SEG_RTOL of the
     group's sum of magnitudes (the two versions add in another order)."""
@@ -959,7 +986,7 @@ def check_segsum(call, capacity: int) -> float:
     read = first & (g < capacity)
     err = (got - want).abs()[read]
     ok = err <= SEG_RTOL * mag[read]
-    log(f"[8] segsum_band: {rows.shape[0]} rows, {int(read.sum())} group starts read; "
+    log(f"[{tag}] segsum_band: {rows.shape[0]} rows, {int(read.sum())} group starts read; "
         f"{int((~ok).sum())} values outside {SEG_RTOL} of the group's |sum|, max |diff| "
         f"{float(err.max()):.3e}")
     check(bool(ok.all()), "segsum_band disagrees with the plain version")
@@ -4089,6 +4116,183 @@ def refine_programs(scene_dir: Path, card: str) -> dict:
     return graphed["launches"]
 
 
+# ----------------------------------------------------------------- phase 20
+BENCH_TIMEOUT_S = 600  # the bench's whole matrix, a subprocess
+# the root bench.py's keys of a point, and its matrix: (N, B)
+BENCH_PROBE_KEYS = {"gaussians", "step_ms", "it_per_s", "isects", "mpix_per_s", "sol_ms",
+                    "bw_util"}
+BENCH_MATRIX = [(100_000, 1), (1_000_000, 1), (3_000_000, 1), (100_000, 4)]
+BENCH_PROFILED = 3  # replays of each in-process point under the profiler
+# the points whose first warm-up call holds the kernels against their plain
+# versions: the most slots, and the batched step
+BENCH_CHECKED = [(3_000_000, 1), (100_000, 4)]
+
+
+def bench_matrix(kind: str, card: str) -> dict:
+    """Phase 20 (a): ``python -m easy_gaussian_splatting_torch.bench`` as a
+    user runs it, the whole matrix: exit 0, its last line one JSON object
+    with the root ``bench.py``'s keys, every point of the matrix there with
+    no ``error`` and finite positive numbers, ``backend`` the card (the
+    bench raises on a second capture or a truncated step); its point
+    lines (captures, peaks) logged. Returns the result."""
+    cmd = [sys.executable, "-m", "easy_gaussian_splatting_torch.bench"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[20] the bench exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    result = json.loads(lines[-1])
+    log(f"[20] python -m easy_gaussian_splatting_torch.bench: exit 0 in {wall:.1f} s; last "
+        f"line: {lines[-1]}")
+    check(set(result) == {"metric", "value", "unit", "vs_baseline", "detail"}
+          and result["metric"] == "train_iters_per_sec" and result["unit"] == "it/s",
+          f"[20] the bench's result has keys {sorted(result)}")
+    detail = result["detail"]
+    check(set(detail) == {"step_ms", "gaussians", "image", "mpix_per_s", "backend",
+                          "scale_probe"} and detail["image"] == "800x800",
+          f"[20] the bench's detail has keys {sorted(detail)}")
+    check(detail["backend"] == kind, f"[20] backend {detail['backend']!r}, not the card {kind!r}")
+    probes = detail["scale_probe"]
+    check([(p.get("gaussians"), p.get("camera_batch", 1)) for p in probes] == BENCH_MATRIX,
+          f"[20] the matrix ran {probes}")
+    for p in probes:
+        keys = BENCH_PROBE_KEYS | ({"camera_batch"} if p.get("camera_batch", 1) > 1 else set())
+        check(set(p) == keys, f"[20] a point has keys {sorted(p)}, not {sorted(keys)}")
+        check(all(math.isfinite(p[k]) and p[k] > 0 for k in BENCH_PROBE_KEYS),
+              f"[20] a point's numbers are not finite and positive: {p}")
+    for ln in lines[:-1]:
+        log(f"[20] {ln}")
+    log(f"[20] card: {card}")
+    for p in probes:
+        log(f"[20] {p['gaussians']} gaussians, B {p.get('camera_batch', 1)}: step_ms "
+            f"{p['step_ms']}, it_per_s {p['it_per_s']}, isects {p['isects']}, sol_ms "
+            f"{p['sol_ms']}, bw_util {p['bw_util']}, mpix_per_s {p['mpix_per_s']} (peaks on "
+            "the bench's line above)")
+    return result
+
+
+def bench_replays(card: str) -> dict:
+    """Phase 20 (b): the bench's 100k point at B = 1 and 4 in process:
+    ``bench_point`` as the command calls it, under the launch counters (the
+    counter's ``binkeys``, the warm-up calls, the capture's replay and each
+    timed replay: B of each main-path kernel a call), then a point of each
+    stepped again with ``BENCH_PROFILED`` replays under the profiler, each
+    seeing B of each main-path kernel as the counters say, and one capture.
+    Returns the launches of the two ``bench_point`` runs."""
+    import torch
+
+    from easy_gaussian_splatting_torch import bench as tbench
+    from easy_gaussian_splatting_torch.training.graphs import WARMUP_CALLS
+
+    zero_counts()
+    runs = [(1, tbench.ITERS_SMALL), (4, tbench.ITERS_BATCHED)]
+    for b, iters in runs:
+        out = tbench.bench_point(100_000, 800, 800, iters=iters, batch=b)
+        log(f"[20] in process, 100000 gaussians, B {b}: step_ms {out['step_ms']}")
+    launches = counts()
+    want = {k: sum(b * (WARMUP_CALLS + 1 + iters) * n + (k == "binkeys") for b, iters in runs)
+            for k, n in PER_STEP.items()}
+    got = {k: launches[k] for k in PER_STEP}
+    check(got == want and not any(v for k, v in launches.items() if k not in PER_STEP),
+          f"[20] bench_point's launches {launches}, want {want} (the counter's binkeys, "
+          f"{WARMUP_CALLS} warm-up calls, the capture's replay and the timed replays)")
+    log("[20] launches of the two bench_point runs: " + ", ".join(
+        f"{k} {v}" for k, v in got.items()) + " (each: the counter's binkeys, "
+        f"{WARMUP_CALLS} warm-up calls, the capture's replay and the timed replays, B a call)")
+    for b, _ in runs:
+        p = tbench.prepare_point(100_000, 800, 800, batch=b)
+        model, adam, _ = p.step(p.model, p.adam)  # the capture
+
+        def replay(model, adam):
+            t0 = time.perf_counter()  # after the profiler's synchronize
+            out = p.step(model, adam)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        steps = []
+        for _ in range(BENCH_PROFILED):
+            before = counts()
+            ((model, adam, _), wall_ms), prof = profiled(lambda: replay(model, adam))
+            steps.append(dict(measured=kernel_launches(prof), records=device_records(prof),
+                              launches={k: v - before[k] for k, v in counts().items()}))
+        check(len(p.graphed.captures) == 1,
+              f"[20] B {b}: {len(p.graphed.captures)} captures, not 1")
+        p.graphed.reset()
+        check_replays("20", {"steps": steps}, {k: b * n for k, n in PER_STEP.items()})
+        log(f"[20] card: {card}; 100000 gaussians, B {b}, the last profiled replay:")
+        device_time(prof, 1, wall_ms, "step", "20", top=10)
+        del p, model, adam
+    return launches
+
+
+@contextlib.contextmanager
+def first_eager_calls(module, name: str, k: int):
+    """Record the arguments of the first ``k`` calls of ``module.name`` made
+    outside a graph capture (a graphed step's first warm-up call)."""
+    import torch
+
+    calls = []
+    orig = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        if len(calls) < k and not torch.cuda.is_current_stream_capturing():
+            calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    with swapped(module, name, rec):
+        yield calls
+
+
+def bench_kernels() -> dict:
+    """Phase 20 (c): the four main-path kernels against their plain versions
+    on the bench's own inputs, recorded from the first eager warm-up call
+    of each ``BENCH_CHECKED`` point's graphed step (B calls of each kernel
+    a point): binkeys equal, tiled_forward and tiled_backward within TOL
+    and BWD_TOL with every flipped pixel or row replayed to a decision at
+    its rounding edge, segsum_band within SEG_RTOL. Returns each kernel's
+    largest absolute difference."""
+    import torch
+
+    from easy_gaussian_splatting_torch import bench as tbench
+    from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
+    from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+    from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
+
+    errs = dict.fromkeys(PER_STEP, 0.0)
+    for n, b in BENCH_CHECKED:
+        p = tbench.prepare_point(n, 800, 800, batch=b)
+        capacity = p.model.capacity
+        with contextlib.ExitStack() as stack:
+            rec = {name: stack.enter_context(first_eager_calls(mod, name, b)) for mod, name in (
+                (bk, "binkeys"), (tr, "tiled_forward"), (tr, "tiled_backward"),
+                (seg, "segsum_band"))}
+            p.step(p.model, p.adam)  # two warm-up calls, the capture, its replay
+        p.graphed.reset()
+        del p
+        torch.cuda.empty_cache()
+        check(all(len(c) == b for c in rec.values()),
+              f"[20] {n} gaussians, B {b}: recorded {({k: len(c) for k, c in rec.items()})} "
+              f"calls, want {b} of each")
+        what = f"{n} gaussians, B {b}"
+        errs["binkeys"] = max(errs["binkeys"], check_binkeys(rec["binkeys"]))
+        log(f"[20] (c) {what}: binkeys keys, flats and counts equal to the plain version ("
+            + "; ".join(describe_binkeys(c) for c in rec["binkeys"]) + ")")
+        for i in range(b):
+            fw_err, _ = check_forward(rec["tiled_forward"][i][0], "20",
+                                      f"the bench's {what}, view {i}")
+            bw_err, _ = check_backward(rec["tiled_backward"][i], "20")
+            seg_err = check_segsum(rec["segsum_band"][i], capacity, "20")
+            errs["tiled_forward"] = max(errs["tiled_forward"], fw_err)
+            errs["tiled_backward"] = max(errs["tiled_backward"], bw_err)
+            errs["segsum_band"] = max(errs["segsum_band"], seg_err)
+        del rec
+        torch.cuda.empty_cache()
+    log("[20] (c) largest |kernel - plain| at the bench's points: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs
+
+
 # ------------------------------------------------------------------ main
 REPLAY_PROBE_WINDOWS = 200  # profiled replays of the last program after the probe's runs
 PROBE_DIR = REPO / "build" / "replay_probe"  # what --replay-probe writes (kept after the run)
@@ -4610,6 +4814,14 @@ def run(args) -> dict:
     torch.cuda.empty_cache()
     refine_launches = refine_programs(scene_dir, card)
 
+    # ---- phase 20: the port's bench, its matrix as a user runs it, then
+    # its 100k points in process under the counters and the profiler, then
+    # the kernels against their plain versions at its 3M and batched points
+    torch.cuda.empty_cache()
+    bench_matrix(kind, card)
+    bench_launches = bench_replays(card)
+    bench_errs = bench_kernels()
+
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
         "tiled_forward": ("tile_forward.cu", "tile_raster.py:355", fw_err, fw_ms, fw_plain,
@@ -4629,7 +4841,8 @@ def run(args) -> dict:
              launches_mesh=mesh_launches[name],
              launches_batched_graphed=batched_g["launches"][name],
              launches_mesh_graphed=mesh_graphed[name],
-             launches_refine=refine_launches[name], max_abs_err=err,
+             launches_refine=refine_launches[name], launches_bench=bench_launches[name],
+             max_abs_err=err, max_abs_err_bench=bench_errs[name],
              ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
         for name, (src, tpu, err, ms, plain, bound, by) in measured.items()
     ]
@@ -4648,7 +4861,8 @@ def run(args) -> dict:
             launches_mesh=mesh_launches[name],
             launches_batched_graphed=batched_g["launches"][name],
             launches_mesh_graphed=mesh_graphed[name],
-            launches_refine=refine_launches[name], max_abs_err=reduce_errs[name],
+            launches_refine=refine_launches[name], launches_bench=bench_launches[name],
+            max_abs_err=reduce_errs[name], max_abs_err_bench=None,
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

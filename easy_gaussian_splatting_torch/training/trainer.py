@@ -116,24 +116,41 @@ def get_render_fn(cfg: Config) -> Callable:
     return functools.partial(render, chunk=cfg.raster_chunk)
 
 
+def tuned_binning(cfg: Config, vals, capacity: int, margin: float):
+    """The binning sized on one frame's intersection counts ``vals`` (an
+    isect counter's: the count, the overflow count, then each budget
+    candidate's need) at ``capacity``: ``isect_mult`` with ``margin`` over
+    the count (floored to 1e-3, inside the memory budget), and the
+    ``small_budget`` and ``ov_frac`` with the smallest sort domain (the
+    config's own when no candidate fits). Returns (isect_mult, small_budget,
+    ov_frac)."""
+    from ..ops.rasterize_tiled import BUDGET_CANDIDATES, _ov_capacity, max_isect_cap
+
+    n = int(vals[0])
+    max_mult = max_isect_cap(cfg.isect_hbm_budget_mb) / max(capacity, 1)
+    mult = math.floor(min(max(0.25, n * margin / capacity), max_mult) * 1e3) / 1e3
+    m_cells = cfg.max_tiles * cfg.max_tiles
+    budget, ov_frac, best_dom = cfg.small_budget, cfg.ov_frac, None
+    for bb, need in zip(BUDGET_CANDIDATES, vals[2:]):
+        if bb >= m_cells:
+            continue
+        ovf = round(max(0.01, min(1.0, int(need) * 2.0 / capacity)), 3)
+        dom = capacity * bb + m_cells * _ov_capacity(capacity, ovf)
+        if best_dom is None or dom < best_dom:
+            budget, ov_frac, best_dom = bb, ovf, dom
+    return mult, budget, ov_frac
+
+
 def tune_inference_cfg(
     cfg: Config, state, w2c, K, height: int, width: int, margin: float = 1.5,
 ) -> Config:
     """Right-size the binning parameters for a loaded checkpoint from one
-    probe frame at the given camera: the intersection capacity
-    (``isect_mult``, with ``margin`` over the probe's count, inside the
-    memory budget) and the population split (``small_budget``, ``ov_frac``)
-    with the smallest sort domain. A dumped ``config.yaml`` carries the
-    pre-autotune defaults, which are oversized at end-of-training
-    populations."""
+    probe frame at the given camera (``tuned_binning``). A dumped
+    ``config.yaml`` carries the pre-autotune defaults, which are oversized
+    at end-of-training populations."""
     if cfg.renderer != "tiled":
         return cfg
-    from ..ops.rasterize_tiled import (
-        BUDGET_CANDIDATES,
-        _ov_capacity,
-        make_isect_counter,
-        max_isect_cap,
-    )
+    from ..ops.rasterize_tiled import make_isect_counter
 
     device = state.params.means.device
     counter = make_isect_counter(cfg.tile_size, cfg.max_tiles, cfg.max_tiles)
@@ -143,23 +160,9 @@ def tune_inference_cfg(
         torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device),
         height=height, width=width,
     ).cpu().numpy()
-    cap = state.capacity
-    n = int(vals[0])
-    max_mult = max_isect_cap(cfg.isect_hbm_budget_mb) / max(cap, 1)
-    cfg.isect_mult = (
-        math.floor(min(max(0.25, n * margin / cap), max_mult) * 1e3) / 1e3
-    )
-    m_cells = cfg.max_tiles * cfg.max_tiles
-    best_dom = None
-    for bb, need in zip(BUDGET_CANDIDATES, vals[2:]):
-        if bb >= m_cells:
-            continue
-        ovf = round(max(0.01, min(1.0, int(need) * 2.0 / cap)), 3)
-        dom = cap * bb + m_cells * _ov_capacity(cap, ovf)
-        if best_dom is None or dom < best_dom:
-            cfg.small_budget, cfg.ov_frac, best_dom = bb, ovf, dom
+    cfg.isect_mult, cfg.small_budget, cfg.ov_frac = tuned_binning(cfg, vals, state.capacity, margin)
     logger.info(
-        f"inference binning autotune: {n} isects at capacity {cap} -> "
+        f"inference binning autotune: {int(vals[0])} isects at capacity {state.capacity} -> "
         f"isect_mult {cfg.isect_mult}, small_budget {cfg.small_budget}, "
         f"ov_frac {cfg.ov_frac}"
     )
@@ -785,12 +788,7 @@ def train(
     isect_counter = None
     overflow_steps = 0  # steps whose gradient was zeroed by isect overflow
     if cfg.renderer == "tiled":
-        from ..ops.rasterize_tiled import (
-            BUDGET_CANDIDATES,
-            _ov_capacity,
-            make_isect_counter,
-            max_isect_cap,
-        )
+        from ..ops.rasterize_tiled import _ov_capacity, make_isect_counter, max_isect_cap
 
         def _make_counter():
             if mesh is not None:
@@ -829,18 +827,7 @@ def train(
             return
         vals = count_isects(data)
         n, n_ov = int(vals[0]), int(vals[1])
-        cap = capacity_now()
-        max_mult = max_isect_cap(cfg.isect_hbm_budget_mb) / max(cap, 1)
-        want = math.floor(min(max(0.25, n * 1.2 / cap), max_mult) * 1e3) / 1e3
-        m_cells = cfg.max_tiles * cfg.max_tiles
-        want_b, want_ov, best_dom = cfg.small_budget, cfg.ov_frac, None
-        for bb, need in zip(BUDGET_CANDIDATES, vals[2:]):
-            if bb >= m_cells:
-                continue
-            ovf = round(max(0.01, min(1.0, int(need) * 2.0 / cap)), 3)
-            dom = cap * bb + m_cells * _ov_capacity(cap, ovf)
-            if best_dom is None or dom < best_dom:
-                want_b, want_ov, best_dom = bb, ovf, dom
+        want, want_b, want_ov = tuned_binning(cfg, vals, capacity_now(), 1.2)
         if want != cfg.isect_mult or want_ov != cfg.ov_frac or want_b != cfg.small_budget:
             logger.info(
                 f"isect autotune: {n} intersections / {n_ov} overflow on the first "

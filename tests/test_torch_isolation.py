@@ -41,7 +41,7 @@ TRAINING_MODULES = (
     "training.graphs", "evaluation.metrics", "evaluation.lpips", "evaluation.evaluator",
     "train", "eval", "validate_e2e", "viewer.integration", "utils.logging",
     "parallel", "parallel.mesh", "parallel.distributed", "parallel.collectives",
-    "parallel.shard", "parallel.gauss_shard",
+    "parallel.shard", "parallel.gauss_shard", "bench",
 )
 # the one string of the port that names the JAX package: the checkpoint
 # format tag both packages write and read
