@@ -1079,7 +1079,7 @@ class Delegate:
 
 def train_recorded(cfg, scene, device, profile=(), keep: bool = False, profile_events=()):
     """The port's ``train()`` with each step timed (host clock between two
-    synchronizes, and CUDA events through ``StepTimer`` in ``rec["timer"]``),
+    synchronizes, and a pair of CUDA events a step in ``rec["step_events"]``),
     its launches, loss, intersections and capacity recorded, and the
     densify and reset events counted. On the card the steps are the graphed
     step's (``rec["graphed"]`` holds each ``GraphedTrainStep`` built, with its
@@ -1103,10 +1103,9 @@ def train_recorded(cfg, scene, device, profile=(), keep: bool = False, profile_e
     from easy_gaussian_splatting_torch.ops.rasterize_tiled import isect_capacity
     from easy_gaussian_splatting_torch.parallel import gauss_shard, shard
     from easy_gaussian_splatting_torch.training import trainer as ttrainer
-    from easy_gaussian_splatting_torch.utils.profiling import StepTimer
 
-    timer = StepTimer(device)
-    rec = {"steps": [], "densify": 0, "reset": 0, "timer": timer, "graphed": [], "events": []}
+    rec = {"steps": [], "densify": 0, "reset": 0, "step_events": [], "graphed": [],
+           "events": []}
     make_orig = ttrainer.make_train_step
     mesh_orig = ttrainer.make_mesh_train_step
     graphed_orig = ttrainer.GraphedTrainStep
@@ -1150,9 +1149,11 @@ def train_recorded(cfg, scene, device, profile=(), keep: bool = False, profile_e
             caps = 0 if graphed is None else len(graphed.captures)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            timer.start()
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
             out = step(model, adam, *a, **k)
-            timer.stop()
+            events[1].record()
+            rec["step_events"].append(events)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             after = counts()
@@ -1965,7 +1966,7 @@ def train_data_path(scene_dir: Path, out_dir: Path, device, card: str) -> dict:
         "Adam state reloaded")
     step_ms = [steps[i]["ms"] for i in DATA_TIMED]
     it_ms = iteration_ms(steps, DATA_TIMED)
-    dev_ms = rec["timer"].durations_ms()
+    dev_ms = [s.elapsed_time(e) for s, e in rec["step_events"]]
     dev_step = float(np.median([dev_ms[i] for i in DATA_TIMED]))
     del loop, state, adam, drec
     torch.cuda.empty_cache()
@@ -1974,7 +1975,7 @@ def train_data_path(scene_dir: Path, out_dir: Path, device, card: str) -> dict:
     # ahead by the config's prefetch threads
     log(f"[13] card: {card}")
     log(f"[13] cached: step median (steps 16-29, host clock between synchronizes) "
-        f"{float(np.median(step_ms)):.2f} ms, on CUDA events (StepTimer) {dev_step:.2f} ms, loop "
+        f"{float(np.median(step_ms)):.2f} ms, on CUDA events {dev_step:.2f} ms, loop "
         f"iteration median {float(np.median(it_ms)):.2f} ms; peak device memory in train() "
         f"{peak / 2**20:.0f} MiB")
     scfg = load_config(REPO / "configs" / "tandt_db.yaml", **dict(
@@ -1987,7 +1988,7 @@ def train_data_path(scene_dir: Path, out_dir: Path, device, card: str) -> dict:
         sloop, stream = train_recorded(scfg, None, device)
     check(not srec["caches"] and sloop.step == STREAM_STEPS, "the streamed run built a cache")
     s_step = float(np.median([stream["steps"][i]["ms"] for i in STREAM_TIMED]))
-    s_dev = stream["timer"].durations_ms()
+    s_dev = [s.elapsed_time(e) for s, e in stream["step_events"]]
     s_dev_step = float(np.median([s_dev[i] for i in STREAM_TIMED]))
     s_it = float(np.median(iteration_ms(stream["steps"], STREAM_TIMED)))
     log(f"[13] streamed (data_device_cache false, dataloader_workers {scfg.dataloader_workers}, "

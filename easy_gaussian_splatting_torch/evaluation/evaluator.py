@@ -100,7 +100,8 @@ class Evaluator:
         if self._programs is None:
             from ..training.graphs import Programs
 
-            self._programs = Programs(device, EVAL_GRAPHS, "the eval's program", _describe)
+            self._programs = Programs(device, EVAL_GRAPHS, "the eval's program", _describe,
+                                      prefix="eval")
         return self._programs
 
     def _render_out(self, model, data, sh_degree, background):
@@ -270,7 +271,8 @@ class Evaluator:
                     self._render(model, data, sh_degree, background)
 
             # no warm-up calls: the frame has just been rendered
-            program = Captured(chain, device, warmup=lambda: None, what="the latency chain")
+            program = Captured(chain, device, warmup=lambda: None, what="the latency chain",
+                               prefix="eval")
             program.replay()  # the first replay uploads the graph
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()

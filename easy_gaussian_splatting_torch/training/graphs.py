@@ -36,6 +36,14 @@ The machinery every program here shares:
   launches as an eager call does (the warm-up calls are real launches and
   count); the collectives' ``CALLS`` likewise. ``chip_smoke.py`` holds
   the kernel counts to the kernels the profiler sees in replays.
+- The spans (``utils/profiling.py::span``, recorded while a profiler window
+  runs): each ``Programs`` takes a prefix from its owner (``train`` for
+  ``GraphedTrainStep``, ``serve`` for the viewer's ``GraphedRender``,
+  ``eval`` for the evaluator's programs) and records ``<prefix>.capture``
+  around a capture, ``<prefix>.copy_in`` around the copy of a call's
+  inputs into the program's buffers and ``<prefix>.replay`` around
+  ``graph.replay()``; ``GraphedTrainStep`` records ``train.step`` around
+  its whole call, whose self time is the host's own cost of a step.
 
 ``step_signature`` is the key the JAX package precompiles for (plus the
 renderer and the backward reduction and binning in force);
@@ -117,6 +125,7 @@ from ..models.gaussians import (
     grow_capacity,
 )
 from ..models.optimizer import AdamState, grow_adam_state
+from ..utils.profiling import span
 from .config import Config
 
 logger = logging.getLogger(__name__)
@@ -196,11 +205,14 @@ class Captured:
     the kernel launches (and collectives) recorded into it. ``WARMUP_CALLS``
     eager calls of ``warmup`` (default ``fn``: the same work, leaving the
     state as it was) run on a side stream first (``stream``, or a new one),
-    then the capture records on that stream into ``pool``."""
+    then the capture records on that stream into ``pool``. Each replay is a
+    ``<prefix>.replay`` span (``prefix``: its owner's)."""
 
     def __init__(self, fn: Callable, device, pool=None, warmup: Callable | None = None,
-                 what: str = "program", stream: torch.cuda.Stream | None = None):
+                 what: str = "program", stream: torch.cuda.Stream | None = None,
+                 prefix: str = "program"):
         device = require_cuda(what, device)
+        self.replay_span = f"{prefix}.replay"
         stream = stream or torch.cuda.Stream(device)
         ambient = torch.cuda.current_stream(device)
         stream.wait_stream(ambient)
@@ -231,7 +243,8 @@ class Captured:
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
 
     def replay(self) -> None:
-        self.graph.replay()
+        with span(self.replay_span):
+            self.graph.replay()
         _add_counts(self.launches)
         _collective_calls().update(self.collectives)
 
@@ -263,7 +276,8 @@ class Programs:
     times in ms, the pool's growth in bytes, ``ahead`` for a capture made
     ahead of need), resets included; ``reset`` drops every program and the
     pool, whose memory goes back to the card. ``describe`` names a key in
-    the capture's log line.
+    the capture's log line; ``prefix`` (the owner's: ``train``, ``serve``,
+    ``eval``) names its spans.
 
     A program may take tensors by reference (``live``: the train state's
     buffers): it is captured over those very tensors, never copied, so a
@@ -272,9 +286,9 @@ class Programs:
     captures it again over them."""
 
     def __init__(self, device, size: int, what: str, describe: Callable[[Hashable], str] = repr,
-                 captures: List[Dict] | None = None):
+                 captures: List[Dict] | None = None, prefix: str = "program"):
         self.device = require_cuda(what, device)
-        self.size, self.what, self.describe = size, what, describe
+        self.size, self.what, self.describe, self.prefix = size, what, describe, prefix
         self.stream = torch.cuda.Stream(self.device)  # every capture's, as they share the pool
         self.pool = None
         self.entries: OrderedDict = OrderedDict()
@@ -303,10 +317,12 @@ class Programs:
         self._pop(same[:max(0, len(same) + 1 - self.size)])
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        bufs = [torch.empty(t.shape, dtype=t.dtype, device=self.device).copy_(t) for t in inputs]
-        p = Captured(lambda: fn(bufs + live), self.device, pool=self.pool,
-                     warmup=None if warmup is None else lambda: warmup(bufs + live),
-                     what=self.what, stream=self.stream)
+        with span(f"{self.prefix}.capture"):
+            bufs = [torch.empty(t.shape, dtype=t.dtype, device=self.device).copy_(t)
+                    for t in inputs]
+            p = Captured(lambda: fn(bufs + live), self.device, pool=self.pool,
+                         warmup=None if warmup is None else lambda: warmup(bufs + live),
+                         what=self.what, stream=self.stream, prefix=self.prefix)
         p.inputs, p.live, p.fresh = bufs, live, True
         self.entries[key] = p
         self.captures.append(dict(key=key, warmup_ms=p.warmup_ms, capture_ms=p.capture_ms,
@@ -327,7 +343,8 @@ class Programs:
         buffer."""
         p = self.prepare(key, fn, inputs, warmup, live)
         if not p.fresh:
-            copy_in(p.inputs, inputs)
+            with span(f"{self.prefix}.copy_in"):
+                copy_in(p.inputs, inputs)
         p.replay()
         return p
 
@@ -455,7 +472,7 @@ class GraphedTrainStep:
         self.cfg, self.mesh, self._step = cfg, mesh, step
         self.signature = None  # the last replayed program's
         self.programs = Programs(self.device, TRAIN_GRAPHS, "a program over the train state",
-                                 _describe)
+                                 _describe, prefix="train")
         self._state = None
         self._next: Dict[int, tuple] = {}  # capacity -> (buffers, Programs) prepared ahead
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -575,7 +592,7 @@ class GraphedTrainStep:
         else:
             if capacity not in self._next:
                 nxt = Programs(self.device, TRAIN_GRAPHS, self.programs.what, _describe,
-                               captures=self.programs.captures)
+                               captures=self.programs.captures, prefix="train")
                 # into the state's pool, on its stream: the grown program
                 # reuses the blocks the state's programs free after their
                 # captures, and keeps the pool when it is adopted
@@ -605,22 +622,24 @@ class GraphedTrainStep:
     def __call__(self, model: GaussianModelState, adam: AdamState, w2c, K, image, mask,
                  lr_means, do_stats, skip_all, skip_opac, *, height: int, width: int,
                  sh_degree: int):
-        for buf, v in zip([self._lr] + self._flags, (lr_means, do_stats, skip_all, skip_opac)):
-            if isinstance(v, torch.Tensor):
-                buf.copy_(v)
-            else:
-                buf.fill_(v)
-        self.own(model, adam)
-        state = self._state
-        self.signature = graph_signature(
-            self.cfg, model.capacity, height, width, sh_degree,
-            batch=w2c.shape[0] if w2c.dim() == 3 else 0, mesh=self.mesh)
-        kw = dict(height=height, width=width, sh_degree=sh_degree)
-        program = self.programs.run(
-            self.signature, lambda frame: self._run(state, frame, self._flags, kw),
-            (w2c, K, image, mask), warmup=lambda frame: self._run(state, frame, self._skip_every, kw))
-        model_new, adam_new = state_from(self._state)
-        return model_new, adam_new, dict(program.out)
+        with span("train.step"):
+            for buf, v in zip([self._lr] + self._flags, (lr_means, do_stats, skip_all, skip_opac)):
+                if isinstance(v, torch.Tensor):
+                    buf.copy_(v)
+                else:
+                    buf.fill_(v)
+            self.own(model, adam)
+            state = self._state
+            self.signature = graph_signature(
+                self.cfg, model.capacity, height, width, sh_degree,
+                batch=w2c.shape[0] if w2c.dim() == 3 else 0, mesh=self.mesh)
+            kw = dict(height=height, width=width, sh_degree=sh_degree)
+            program = self.programs.run(
+                self.signature, lambda frame: self._run(state, frame, self._flags, kw),
+                (w2c, K, image, mask),
+                warmup=lambda frame: self._run(state, frame, self._skip_every, kw))
+            model_new, adam_new = state_from(self._state)
+            return model_new, adam_new, dict(program.out)
 
 
 def write_back(write: torch.Tensor, olds: Sequence[torch.Tensor], news: Sequence[torch.Tensor],

@@ -18,8 +18,11 @@ where the JAX trainer compiles ahead. On the CPU and on a gloo mesh (whose
 collectives cannot be captured) everything runs eagerly, and ``train()``
 logs why at its start; capacity compaction and a growth nothing was
 prepared for stay eager everywhere, as in the JAX package.
-``EGS_TORCH_LOOP_TIMING=1`` logs the loop's wall time in buckets every 100
-steps, as ``EGS_TPU_LOOP_TIMING`` does.
+The loop's pieces are spans (``utils/profiling.py::span``: ``train.loop.data``,
+``.dispatch``, ``.loss_sync``, ``.ckpt``, ``.eval``, ``.densify``,
+``.other``), on the device's timeline in the ``profile_steps`` window;
+``EGS_TORCH_LOOP_TIMING=1`` sums them on the host clock and logs the sums
+every 100 steps, as ``EGS_TPU_LOOP_TIMING`` does.
 
 ``train(cfg)`` with no scene object builds the ``Scene`` from ``cfg.data``
 (COLMAP or Blender), keeps the train and eval splits on the device
@@ -50,7 +53,6 @@ gathered state.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 import logging
@@ -91,6 +93,7 @@ from ..models.optimizer import (
 )
 from ..models.render import CameraView, render
 from ..ops.lr_schedule import log_lerp_schedule
+from ..utils.profiling import Trace, span, time_spans
 from .config import Config
 from .graphs import GraphedTrainStep, grow_state, state_from, state_leaves, write_back
 from .precompile import growth_near, growth_targets, sh_bump_due
@@ -981,18 +984,12 @@ def train(
                     tb_report(tb_writer, old_step, {"train/num_isects": n_isects})
                 maybe_grow_isect_mult(int(n_isects), old_step)
 
-    # wall-time buckets of the host loop (EGS_TORCH_LOOP_TIMING=1 logs them
-    # every 100 steps, per step): the JAX trainer's EGS_TPU_LOOP_TIMING
+    # the loop's pieces as spans (utils/profiling.py): on the profiler's
+    # timeline inside a profile_steps window; EGS_TORCH_LOOP_TIMING=1 also
+    # sums each on the host clock and logs the sums every 100 steps, per
+    # step (the JAX trainer's EGS_TPU_LOOP_TIMING buckets)
     loop_timing = os.environ.get("EGS_TORCH_LOOP_TIMING") == "1"
-    buckets: Dict[str, float] = collections.defaultdict(float)
-    t_prev = time.perf_counter()
-
-    def _bucket(name: str) -> None:
-        nonlocal t_prev
-        if loop_timing:
-            now = time.perf_counter()
-            buckets[name] += now - t_prev
-            t_prev = now
+    totals = time_spans(loop_timing)
 
     if frame_cache is not None:  # the same order as streaming's shuffle
         shuffled = list(range(scene.nbr_data("train")))
@@ -1000,9 +997,10 @@ def train(
         data_iter = (frame_cache.get(i) for i in shuffled)
     else:
         data_iter = prefetch_frames(scene, "train", shuffle=True, num_workers=cfg.dataloader_workers)
-    for data in data_iter:
-        _bucket("data")
-        if loop.step >= cfg.total_iterations:
+    while True:
+        with span("train.loop.data"):
+            data = next(data_iter, None)
+        if data is None or loop.step >= cfg.total_iterations:
             # resumed runs start mid-schedule; the index tiling still spans
             # the full budget
             break
@@ -1010,14 +1008,8 @@ def train(
         step = loop.step
         all_tb_info: Dict[str, Any] = {}
 
-        if not autotuned:
-            autotune_isect_mult(data)
-            autotuned = True
-
         if cfg.profile_steps > 0 and cfg.output is not None and rank0:
             if step == 10 and profiler is None:
-                from ..utils.profiling import Trace
-
                 profiler = Trace(Path(cfg.output) / "profile")
                 profiler.start()
             elif profiler is not None and step == 10 + cfg.profile_steps:
@@ -1028,19 +1020,22 @@ def train(
         densify_now = in_refine and (step - cfg.refine_start) % cfg.refine_every == 0
         reset_now = in_refine and (step - cfg.refine_start) % cfg.reset_opacities_every == 0
 
-        w2c, K, image, mask = _frame_tensors(data, dev)
-        height = data["height"]
-        if mesh is not None:
-            if step == 1:
-                _check_same_frame(w2c, mesh)
-            image, mask = _pad_rows(image, mask, pad_unit)
-            height = image.shape[0]
-        loop.model, loop.adam, ld = train_step(
-            loop.model, loop.adam, w2c, K, image, mask,
-            means_lr(step), in_refine, densify_now, reset_now,
-            height=height, width=data["width"], sh_degree=loop.active_sh_degree,
-        )
-        _bucket("dispatch")
+        with span("train.loop.dispatch"):
+            if not autotuned:
+                autotune_isect_mult(data)
+                autotuned = True
+            w2c, K, image, mask = _frame_tensors(data, dev)
+            height = data["height"]
+            if mesh is not None:
+                if step == 1:
+                    _check_same_frame(w2c, mesh)
+                image, mask = _pad_rows(image, mask, pad_unit)
+                height = image.shape[0]
+            loop.model, loop.adam, ld = train_step(
+                loop.model, loop.adam, w2c, K, image, mask,
+                means_lr(step), in_refine, densify_now, reset_now,
+                height=height, width=data["width"], sh_degree=loop.active_sh_degree,
+            )
 
         log_now = (
             step == 1
@@ -1048,107 +1043,111 @@ def train(
             or step % cfg.eval_every == 0
             or densify_now
         )
-        if log_now or step % 10 == 0:
-            pending_losses.append((step, _PendingScalars(ld)))
-            _drain_losses(min_pending=3)
-        _bucket("loss_sync")
+        with span("train.loop.loss_sync"):
+            if log_now or step % 10 == 0:
+                pending_losses.append((step, _PendingScalars(ld)))
+                _drain_losses(min_pending=3)
 
-        if step in save_iters and cfg.output is not None:
-            model = full_state(loop.model)
-            adam = full_state(loop.adam) if cfg.save_optimizer_state else None
-            if rank0:
-                save_checkpoint(
-                    Path(cfg.output) / "checkpoints" / f"iterations_{step}.npz",
-                    model, loop.active_sh_degree, step, adam=adam,
-                )
-            del model, adam
-        _bucket("ckpt")
+        with span("train.loop.ckpt"):
+            if step in save_iters and cfg.output is not None:
+                model = full_state(loop.model)
+                adam = full_state(loop.adam) if cfg.save_optimizer_state else None
+                if rank0:
+                    save_checkpoint(
+                        Path(cfg.output) / "checkpoints" / f"iterations_{step}.npz",
+                        model, loop.active_sh_degree, step, adam=adam,
+                    )
+                del model, adam
 
-        if scene.nbr_data("eval") > 0 and (step == 1 or step % cfg.eval_every == 0):
-            # full single-device frames of the whole model, on rank 0
-            model = full_state(loop.model)
-            if rank0:
-                metrics = evaluator.evaluate(
-                    scene, "eval", model, loop.active_sh_degree, background,
-                    num_workers=cfg.dataloader_workers, cache=eval_cache,
-                )
-                for k, v in metrics.items():
-                    if "render" in k:
-                        all_tb_info[f"render/{k}"] = v
-                    elif k in ("psnr", "ssim", "lpips", "lpips_proxy", "fps", "latency_ms",
-                               "latency_device_ms"):
-                        all_tb_info[f"eval/{k}"] = v
-                logger.info("eval @ step %d: %s", step, ", ".join(
-                    f"{k}={v:.4f}" for k, v in metrics.items() if isinstance(v, float)))
-            del model
-            if mesh is not None:
-                dist.barrier()
-        _bucket("eval")
+        with span("train.loop.eval"):
+            if scene.nbr_data("eval") > 0 and (step == 1 or step % cfg.eval_every == 0):
+                # full single-device frames of the whole model, on rank 0
+                model = full_state(loop.model)
+                if rank0:
+                    metrics = evaluator.evaluate(
+                        scene, "eval", model, loop.active_sh_degree, background,
+                        num_workers=cfg.dataloader_workers, cache=eval_cache,
+                    )
+                    for k, v in metrics.items():
+                        if "render" in k:
+                            all_tb_info[f"render/{k}"] = v
+                        elif k in ("psnr", "ssim", "lpips", "lpips_proxy", "fps", "latency_ms",
+                                   "latency_device_ms"):
+                            all_tb_info[f"eval/{k}"] = v
+                    logger.info("eval @ step %d: %s", step, ", ".join(
+                        f"{k}={v:.4f}" for k, v in metrics.items() if isinstance(v, float)))
+                del model
+                if mesh is not None:
+                    dist.barrier()
 
-        if densify_now:
-            if gauss:
-                info = run_sharded_densify_with_growth(loop, sharded_densify_step, generator,
-                                                       cfg, mesh)
-            else:
-                info = run_densify_with_growth(loop, densify_step, generator, cfg, grow)
-            # on the grown population, so the next step's capacity covers it
-            check_isect_capacity(data)
-            if precompiler is not None:
-                # the next doubling (grown at 0.85 of the capacity; named
-                # from 0.55), with the next SH degree when its bump may come
-                # first, captured once the growth is near; a prepared
-                # capacity the rule no longer names goes
-                targets = growth_targets(cfg, info["nbr_gaussians"], loop.model.capacity,
-                                         loop.active_sh_degree)
-                precompiler.settle({c for c, _ in targets})
-                if growth_near(alive, info["nbr_gaussians"], loop.model.capacity):
-                    for cap_t, sh_t in targets:
-                        precompiler.warm(cfg, loop.model, loop.adam, data["height"],
-                                         data["width"], sh_t, cap_t, frame=(w2c, K, image, mask))
-            alive = info["nbr_gaussians"]
-            all_tb_info["train/densify"] = {"split": info["split"], "clone": info["clone"]}
-            all_tb_info["train/prune"] = {
-                "low_opacity": info["prune_low_opacity"],
-                "large_radii": info["prune_large_radii"],
-                "large_scale": info["prune_large_scale"],
-            }
-            all_tb_info["train/nbr_gaussians"] = info["nbr_gaussians"]
-        _bucket("densify")
-        if reset_now:
-            loop.model, loop.adam = reset_step(loop.model, loop.adam)
+        with span("train.loop.densify"):
+            if densify_now:
+                if gauss:
+                    info = run_sharded_densify_with_growth(loop, sharded_densify_step, generator,
+                                                           cfg, mesh)
+                else:
+                    info = run_densify_with_growth(loop, densify_step, generator, cfg, grow)
+                # on the grown population, so the next step's capacity covers it
+                check_isect_capacity(data)
+                if precompiler is not None:
+                    # the next doubling (grown at 0.85 of the capacity; named
+                    # from 0.55), with the next SH degree when its bump may
+                    # come first, captured once the growth is near; a
+                    # prepared capacity the rule no longer names goes
+                    targets = growth_targets(cfg, info["nbr_gaussians"], loop.model.capacity,
+                                             loop.active_sh_degree)
+                    precompiler.settle({c for c, _ in targets})
+                    if growth_near(alive, info["nbr_gaussians"], loop.model.capacity):
+                        for cap_t, sh_t in targets:
+                            precompiler.warm(cfg, loop.model, loop.adam, data["height"],
+                                             data["width"], sh_t, cap_t,
+                                             frame=(w2c, K, image, mask))
+                alive = info["nbr_gaussians"]
+                all_tb_info["train/densify"] = {"split": info["split"], "clone": info["clone"]}
+                all_tb_info["train/prune"] = {
+                    "low_opacity": info["prune_low_opacity"],
+                    "large_radii": info["prune_large_radii"],
+                    "large_scale": info["prune_large_scale"],
+                }
+                all_tb_info["train/nbr_gaussians"] = info["nbr_gaussians"]
 
-        if precompiler is not None and sh_bump_due(cfg, step, loop.active_sh_degree):
-            precompiler.warm(cfg, loop.model, loop.adam, data["height"], data["width"],
-                             loop.active_sh_degree + 1, loop.model.capacity,
-                             frame=(w2c, K, image, mask))
-        if cfg.sh_degree_interval != 0 and step % cfg.sh_degree_interval == 0:
-            loop.active_sh_degree = min(loop.active_sh_degree + 1, cfg.sh_degree)
+        with span("train.loop.other"):
+            if reset_now:
+                loop.model, loop.adam = reset_step(loop.model, loop.adam)
 
-        if tb_writer is not None and log_now:
-            tb_report(tb_writer, step, all_tb_info)
+            if precompiler is not None and sh_bump_due(cfg, step, loop.active_sh_degree):
+                precompiler.warm(cfg, loop.model, loop.adam, data["height"], data["width"],
+                                 loop.active_sh_degree + 1, loop.model.capacity,
+                                 frame=(w2c, K, image, mask))
+            if cfg.sh_degree_interval != 0 and step % cfg.sh_degree_interval == 0:
+                loop.active_sh_degree = min(loop.active_sh_degree + 1, cfg.sh_degree)
 
-        _bucket("other")
+            if tb_writer is not None and log_now:
+                tb_report(tb_writer, step, all_tb_info)
+
+            if view_src is not None:
+                view_src.active_sh_degree = loop.active_sh_degree
+                if gauss:
+                    view_src.model = full_state(loop.model)
+            if viewer is not None:
+                viewer.update_render_image()
+
         if step % 100 == 0:
             elapsed = time.time() - t_start
             logger.info(
                 f"step {step}/{cfg.total_iterations} loss={last_loss:.5f} "
                 f"({step / elapsed:.2f} it/s)"
             )
-            if loop_timing and buckets:
-                total = sum(buckets.values())
+            if totals:
+                loop_s = {k[len("train.loop."):]: v for k, v in totals.items()
+                          if k.startswith("train.loop.")}
                 parts = " ".join(f"{k}={v * 1e3 / 100:.1f}ms" for k, v in
-                                 sorted(buckets.items(), key=lambda kv: -kv[1]))
+                                 sorted(loop_s.items(), key=lambda kv: -kv[1]))
                 logger.info(f"loop timing (per step over last 100): {parts} "
-                            f"total={total * 1e3 / 100:.1f}ms")
-                buckets.clear()
+                            f"total={sum(loop_s.values()) * 1e3 / 100:.1f}ms")
+                totals.clear()
 
-        if view_src is not None:
-            view_src.active_sh_degree = loop.active_sh_degree
-            if gauss:
-                view_src.model = full_state(loop.model)
-        if viewer is not None:
-            viewer.update_render_image()
-
+    time_spans(False)
     _drain_losses(min_pending=0)
     if precompiler is not None:
         precompiler.shutdown()

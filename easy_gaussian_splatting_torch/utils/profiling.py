@@ -1,26 +1,82 @@
-"""Profiling and step timing; counterpart of
-``easy_gaussian_splatting_tpu/utils/profiling.py``.
+"""Profiling; counterpart of ``easy_gaussian_splatting_tpu/utils/profiling.py``.
 
-``trace(logdir)`` records a ``torch.profiler`` window (host and, on the
-card, device activity) and writes it as a Chrome trace under ``logdir``
-(viewable in Perfetto or ``chrome://tracing``). ``StepTimer`` collects
-step latencies and reports percentiles; steps whose tensors lie on the
-card are timed with CUDA events, which read the device's own clock, and
-CPU steps with the host clock.
+``Trace(logdir)`` records a ``torch.profiler`` window (host and, on the
+card, device activity) between its ``start`` and ``stop`` and writes it as
+a Chrome trace, ``logdir/trace.json`` (viewable in Perfetto or
+``chrome://tracing``); ``trace(logdir)`` is the same window around a
+``with`` block.
+
+``span(name)`` is the port's one tracing helper: a context manager around
+a piece of host work. While a ``torch.profiler`` window records, it enters
+``record_function(name)``, so the span lands on the profiler's timeline
+beside the device's records; while ``time_spans`` is on (``train()`` turns
+it on for ``EGS_TORCH_LOOP_TIMING=1``), it adds its host-clock duration to
+a total by name. Otherwise it costs one check and returns a shared null
+context. Spans are named ``<owner>.<piece>``: ``train.*`` for the train
+step and ``train()``'s loop, ``serve.*`` for the viewer's render,
+``eval.*`` for the evaluator's programs.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import logging
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict
 
-import numpy as np
 import torch
+from torch.profiler import record_function
 
 logger = logging.getLogger(__name__)
+
+_profiling = torch._C._autograd._profiler_enabled  # true while a profiler window records
+_NULL = contextlib.nullcontext()
+_totals: Dict[str, float] | None = None  # host seconds by span name while time_spans is on
+
+
+class _TimedSpan:
+    """A span whose host-clock duration goes into the totals (and into the
+    profiler's timeline too while one records)."""
+
+    __slots__ = ("name", "traced", "t0")
+
+    def __init__(self, name: str, traced):
+        self.name, self.traced = name, traced
+
+    def __enter__(self):
+        if self.traced is not None:
+            self.traced.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if _totals is not None:
+            _totals[self.name] += time.perf_counter() - self.t0
+        if self.traced is not None:
+            self.traced.__exit__(*exc)
+
+
+def span(name: str):
+    """A context manager around the host work it encloses: a
+    ``record_function(name)`` while a profiler window records, timed into
+    :func:`time_spans`'s totals while they are on, else a shared null
+    context."""
+    if _totals is not None:
+        return _TimedSpan(name, record_function(name) if _profiling() else None)
+    if _profiling():
+        return record_function(name)
+    return _NULL
+
+
+def time_spans(on: bool) -> Dict[str, float] | None:
+    """Turn the spans' host-clock totals on (a new, empty mapping of span
+    name to seconds, returned) or off (None). The totals are the process's:
+    one owner at a time (``train()`` while ``EGS_TORCH_LOOP_TIMING=1``)."""
+    global _totals
+    _totals = collections.defaultdict(float) if on else None
+    return _totals
 
 
 class Trace:
@@ -60,61 +116,3 @@ def trace(logdir: str | Path):
         yield window
     finally:
         window.stop()
-
-
-class StepTimer:
-    """Collects per-step latencies and reports percentiles. ``device`` of
-    type cuda times with CUDA events (read after a synchronize in
-    ``summary``), anything else with the host clock."""
-
-    def __init__(self, device: Optional[str | torch.device] = None) -> None:
-        self._cuda = device is not None and torch.device(device).type == "cuda"
-        self._durations: List[float] = []  # seconds, host clock
-        self._events: List[tuple] = []  # (start, end) CUDA events
-        self._t0: float | None = None
-        self._start_event = None
-
-    def start(self) -> None:
-        if self._cuda:
-            self._start_event = torch.cuda.Event(enable_timing=True)
-            self._start_event.record()
-        else:
-            self._t0 = time.perf_counter()
-
-    def stop(self) -> None:
-        if self._cuda and self._start_event is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self._events.append((self._start_event, end))
-            self._start_event = None
-        elif self._t0 is not None:
-            self._durations.append(time.perf_counter() - self._t0)
-            self._t0 = None
-
-    def durations_ms(self) -> List[float]:
-        if self._events:
-            self._events[-1][1].synchronize()
-            self._durations += [s.elapsed_time(e) / 1e3 for s, e in self._events]
-            self._events.clear()
-        return [d * 1e3 for d in self._durations]
-
-    def summary(self) -> Dict[str, float]:
-        d = np.asarray(self.durations_ms())
-        if not d.size:
-            return {}
-        return {
-            "steps": float(len(d)),
-            "mean_ms": float(d.mean()),
-            "p50_ms": float(np.percentile(d, 50)),
-            "p90_ms": float(np.percentile(d, 90)),
-            "p99_ms": float(np.percentile(d, 99)),
-            "it_per_s": float(1e3 / d.mean()),
-        }
-
-    def log_summary(self, prefix: str = "step timing") -> None:
-        s = self.summary()
-        if s:
-            logger.info(
-                f"{prefix}: mean={s['mean_ms']:.1f}ms p50={s['p50_ms']:.1f}ms "
-                f"p90={s['p90_ms']:.1f}ms ({s['it_per_s']:.2f} it/s over {int(s['steps'])} steps)"
-            )

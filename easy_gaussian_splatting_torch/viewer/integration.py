@@ -10,7 +10,16 @@ The training viewer renders ``loop.model`` in the loop's own thread
 the graphed train step's buffers, updated in place by each step, which
 the graphed render reads by reference (``donated``), and a frame rendered
 between two steps reads them whole. The HTTP threads only post requests
-to the mailbox."""
+to the mailbox.
+
+A frame's spans (``utils/profiling.py::span``, recorded while a profiler
+window runs): ``serve.render`` around the closure's call, re-renders
+included, and inside it, graphed, ``serve.take`` (the model check),
+``serve.copy_in`` and ``serve.replay`` (``graphs.Programs``),
+``serve.wait`` (the copy to pinned memory enqueued, then the event
+waited on) and ``serve.to_host`` (the image copied out of the pinned
+buffer, the count read); eager, ``serve.to_host`` (the image and count
+read back)."""
 
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .camera import CameraState
 from .server import Viewer
 
@@ -94,7 +104,8 @@ class GraphedRender:
 
         self.programs = Programs(
             background.device, RENDER_GRAPHS, "the render",
-            lambda k: f"{k[0]}x{k[1]}, sh {k[2]}, capacity {k[3]}, isect_mult {k[4]}")
+            lambda k: f"{k[0]}x{k[1]}, sh {k[2]}, capacity {k[3]}, isect_mult {k[4]}",
+            prefix="serve")
         self.device = self.programs.device
         self.make_render_fn = make_render_fn  # isect_mult -> render function
         self.background = background
@@ -132,22 +143,25 @@ class GraphedRender:
         """(image [H, W, 3] f32 on the host, intersection count or None)."""
         from ..models.gaussians import PARAM_NAMES
 
-        self._take([getattr(state.params, n) for n in PARAM_NAMES] + [state.alive])
+        with span("serve.take"):
+            self._take([getattr(state.params, n) for n in PARAM_NAMES] + [state.alive])
         key = (width, height, sh, state.capacity, mult)
         camera = [torch.as_tensor(np.asarray(x, np.float32)) for x in (w2c, K)]
         image, n = self.programs.run(key, lambda bufs: self._frame(key, *bufs), camera).out
-        host = self._host.get((height, width))
-        if host is None:
-            host = self._host[(height, width)] = dict(
-                event=torch.cuda.Event(),
-                image=torch.empty((height, width, 3), dtype=torch.float32, pin_memory=True),
-                n=torch.empty((), dtype=torch.int32, pin_memory=True))
-        host["image"].copy_(image, non_blocking=True)
-        if n is not None:
-            host["n"].copy_(n, non_blocking=True)
-        host["event"].record()
-        host["event"].synchronize()
-        return host["image"].numpy().copy(), None if n is None else int(host["n"])
+        with span("serve.wait"):
+            host = self._host.get((height, width))
+            if host is None:
+                host = self._host[(height, width)] = dict(
+                    event=torch.cuda.Event(),
+                    image=torch.empty((height, width, 3), dtype=torch.float32, pin_memory=True),
+                    n=torch.empty((), dtype=torch.int32, pin_memory=True))
+            host["image"].copy_(image, non_blocking=True)
+            if n is not None:
+                host["n"].copy_(n, non_blocking=True)
+            host["event"].record()
+            host["event"].synchronize()
+        with span("serve.to_host"):
+            return host["image"].numpy().copy(), None if n is None else int(host["n"])
 
 
 def make_gs_render_func(get_state, get_sh_degree, background, render_fn,
@@ -191,11 +205,16 @@ def make_gs_render_func(get_state, get_sh_degree, background, render_fn,
             height=height,
         )
         out = make_render_fn(mult)(state.params, state.alive, camera, sh, background)
-        n = None if out.num_isects is None else int(out.num_isects)
-        return out.image.cpu().numpy(), n
+        with span("serve.to_host"):
+            n = None if out.num_isects is None else int(out.num_isects)
+            return out.image.cpu().numpy(), n
 
     @torch.no_grad()
     def gs_render_func(camera_state: CameraState) -> np.ndarray:
+        with span("serve.render"):
+            return render(camera_state)
+
+    def render(camera_state: CameraState) -> np.ndarray:
         state = get_state()
         sh = int(get_sh_degree())
         cap = getattr(camera_state, "sh_cap", None)

@@ -392,17 +392,16 @@ def test_wrappers_check_their_inputs(cuda):
 def test_eval_latency_chain_replays_a_cuda_graph(cuda, rng):
     """The evaluator's device latency captures its chain of renders in one
     CUDA graph (each render records one ``binkeys`` and one
-    ``tiled_forward`` launch into it) and times a replay; ``StepTimer`` on
-    the card reads CUDA events. Both give finite positive times, the
-    launch counters count the two replays' renders (the capture launches
-    nothing), and the renderer still runs eagerly after the capture."""
+    ``tiled_forward`` launch into it) and times a replay: a finite positive
+    time, the launch counters count the two replays' renders (the capture
+    launches nothing), and the renderer still runs eagerly after the
+    capture."""
     from types import SimpleNamespace
 
     from easy_gaussian_splatting_torch.evaluation.evaluator import LATENCY_CHAIN, Evaluator
     from easy_gaussian_splatting_torch.models import gaussians as tg
     from easy_gaussian_splatting_torch.training.config import config_from_dict
     from easy_gaussian_splatting_torch.training.trainer import get_render_fn
-    from easy_gaussian_splatting_torch.utils.profiling import StepTimer
 
     n = 512
     arrays = dict(
@@ -428,13 +427,6 @@ def test_eval_latency_chain_replays_a_cuda_graph(cuda, rng):
                                           before[1] + 2 * LATENCY_CHAIN)
     assert np.isfinite(ms) and ms > 0
     assert torch.equal(ev._render(model, data, 3, bg), eager)
-    timer = StepTimer(cuda)
-    for _ in range(3):
-        timer.start()
-        ev._render(model, data, 3, bg)
-        timer.stop()
-    d = timer.durations_ms()
-    assert len(d) == 3 and all(np.isfinite(x) and x > 0 for x in d)
 
 
 def _model_arrays(rng, n):
