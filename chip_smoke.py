@@ -237,10 +237,21 @@ and then through the port's benchmark entry point:
    point (4,194,304 slots) and of the 100k point at B = 4, with the
    limits of phases 4 and 8.
 
-Then one JSON line of the seven kernels. Each main path's counts are
+and last the SH colour's kernels alone:
+
+21. ``ops/kernels/sh_color.py``'s forward and backward against
+   ``sh_color_plain`` at the train cells' slot counts (3,145,728 and
+   393,216 rows), degree 3 with 15 stored coefficients: the colours and
+   the gradients of means, sh_0 and sh_rest each within twice the plain
+   f32 version's own distance from its float64 run, one launch each way
+   as the profiler and the counters say; each kernel's ms beside its
+   byte bound (216 and 420 B a row) and the plain version's ms.
+
+Then one JSON line of the nine kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
-for the first four and that of its reduction in phase 11 for the other
-three, ``launches_served`` the viewer's build and requests of phase 5,
+for the first four and the SH colour's two (one launch each way a step)
+and that of its reduction in phase 11 for the other three,
+``launches_served`` the viewer's build and requests of phase 5,
 ``launches_data_path`` the cached ``train(cfg)`` run of phase 13 (a),
 ``launches_batched`` phase 14's 10 timed batched steps,
 ``launches_eval_cli`` phase 15's eval (graphed), ``launches_mesh`` rank
@@ -251,10 +262,13 @@ three, ``launches_served`` the viewer's build and requests of phase 5,
 (b)'s two ``bench_point`` runs.
 ``ms``, ``plain_ms``, ``bound_ms`` and ``max_abs_err`` come from the served
 800x800 frame for binkeys and tiled_forward, and from the first train
-step for the others; ``library_ms`` is null where no one PyTorch call
+step for the others but the SH colour's, whose come from phase 21 at
+3,145,728 rows (``replaces`` null: the JAX package leaves the colour to
+XLA's fusion); ``library_ms`` is null where no one PyTorch call
 computes the function. ``max_abs_err_bench`` is phase 20 (c)'s largest
 difference from the plain version at the bench's points (null for the
-three reduction-only kernels, which the bench does not run).
+three reduction-only kernels and the SH colour's, which it does not
+check).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; any failed
 phase exits non-zero before it.
@@ -688,7 +702,8 @@ KERNEL_SYMBOLS = {
     "binkeys": "binkeys_kernel", "tiled_forward": "tile_forward_kernel",
     "tiled_backward": "tile_backward_kernel", "segsum_band": "segsum_band_kernel",
     "segsum_compact": "segsum_compact_kernel", "monotone_expand": "monotone_expand_kernel",
-    "group_reduce": "group_reduce_kernel",
+    "group_reduce": "group_reduce_kernel", "sh_color": "sh_color_forward_kernel",
+    "sh_color_backward": "sh_color_backward_kernel",
 }
 
 
@@ -1029,25 +1044,31 @@ def counts():
     from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
     from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
     from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+    from easy_gaussian_splatting_torch.ops.kernels import sh_color as shc
     from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
 
     return {"binkeys": bk.launches, "tiled_forward": tr.launches,
             "tiled_backward": tr.backward_launches, "segsum_band": seg.launches,
             "segsum_compact": seg.compact_launches, "monotone_expand": seg.expand_launches,
-            "group_reduce": gr.launches}
+            "group_reduce": gr.launches, "sh_color": shc.launches,
+            "sh_color_backward": shc.backward_launches}
 
 
 def zero_counts() -> None:
     from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
     from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
     from easy_gaussian_splatting_torch.ops.kernels import segments as seg
+    from easy_gaussian_splatting_torch.ops.kernels import sh_color as shc
     from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
 
     bk.launches = tr.launches = tr.backward_launches = seg.launches = 0
     seg.compact_launches = seg.expand_launches = gr.launches = 0
+    shc.launches = shc.backward_launches = 0
 
 
-PER_STEP = {"binkeys": 1, "tiled_forward": 1, "tiled_backward": 1, "segsum_band": 1}
+# each view a step renders launches these once (the SH colour at every degree)
+PER_STEP = {"binkeys": 1, "tiled_forward": 1, "tiled_backward": 1, "segsum_band": 1,
+            "sh_color": 1, "sh_color_backward": 1}
 
 
 def replays(step, model, height: int, width: int, sh_degree: int) -> bool:
@@ -3076,7 +3097,8 @@ def step_memory(cfg, state0, frames, device) -> None:
         """``Captured`` with its warm-up calls' memory and its capture's
         measured apart (host-side allocator queries only)."""
 
-        def __init__(self, fn, device, pool=None, warmup=None, what="program", stream=None):
+        def __init__(self, fn, device, pool=None, warmup=None, what="program", stream=None,
+                     prefix="program"):
             torch.cuda.synchronize()
             base = (torch.cuda.memory_allocated(), total())
             torch.cuda.reset_peak_memory_stats()
@@ -3090,7 +3112,7 @@ def step_memory(cfg, state0, frames, device) -> None:
                     out["warm-up calls"] = ((torch.cuda.max_memory_allocated() - base[0]) / 2**20,
                                             (total() - base[1]) / 2**20)
 
-            super().__init__(lambda: measure_capture(fn), device, pool, warm, what, stream)
+            super().__init__(lambda: measure_capture(fn), device, pool, warm, what, stream, prefix)
 
     model, adam = clone_state(state0, adam0)
     with swapped(graphs, "Captured", Probe):
@@ -4260,7 +4282,7 @@ def bench_kernels() -> dict:
     from easy_gaussian_splatting_torch.ops.kernels import segments as seg
     from easy_gaussian_splatting_torch.ops.kernels import tile_raster as tr
 
-    errs = dict.fromkeys(PER_STEP, 0.0)
+    errs = dict.fromkeys(("binkeys", "tiled_forward", "tiled_backward", "segsum_band"), 0.0)
     for n, b in BENCH_CHECKED:
         p = tbench.prepare_point(n, 800, 800, batch=b)
         capacity = p.model.capacity
@@ -4292,6 +4314,91 @@ def bench_kernels() -> dict:
     log("[20] (c) largest |kernel - plain| at the bench's points: " + ", ".join(
         f"{k} {v:.3e}" for k, v in errs.items()))
     return errs
+
+
+# ----------------------------------------------------------------- phase 21
+# the train cells' slot counts (tandt_db, nerf_synthetic), the first the one
+# the kernels line reports
+SH_ROWS = (3_145_728, 393_216)
+# bytes a row at degree 3 with 15 stored coefficients: forward reads means,
+# sh_0 and sh_rest (12 + 12 + 180) and writes the colour (12); backward
+# reads the colour's gradient and the same three (216) and writes their
+# gradients (204)
+SH_BYTES_PER_ROW = {"sh_color": 216, "sh_color_backward": 420}
+
+
+def sh_color_kernels() -> dict:
+    """Phase 21: the SH colour's kernels (``ops/kernels/sh_color.py``)
+    against ``sh_color_plain`` at ``SH_ROWS``, degree 3, 15 stored
+    coefficients, seeded inputs: the colours and the gradients of means,
+    sh_0 and sh_rest each within twice the plain f32 version's own L2
+    distance from its float64 run, plus 1e-6 of the float64 norm (the
+    kernels round the norm and the direction's gradient in their own
+    order); one launch each way, as the profiler and the counters say.
+    Then each kernel's ms (CUDA events, 20 launches), its byte bound and
+    the plain version's ms (its forward, and autograd's backward of it).
+    Returns, by kernel name, (largest |kernel - plain f32|, ms, plain ms,
+    bound ms, bound by) at ``SH_ROWS[0]``."""
+    import torch
+
+    from easy_gaussian_splatting_torch.ops.kernels import sh_color as shc
+
+    pos = np.array([2.4, 1.6, 2.8])  # a camera some 4 from the origin, looking at it
+    rot = _look_at(pos)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, :3], w2c[:3, 3] = rot.T, -rot.T @ pos
+    w2c = torch.as_tensor(w2c, device=DEVICE)
+    out = {}
+    for c in SH_ROWS:
+        gen = torch.Generator(device=DEVICE).manual_seed(c)
+        means = torch.rand(c, 3, generator=gen, device=DEVICE) * 4.0 - 2.0
+        sh_0 = torch.randn(c, 1, 3, generator=gen, device=DEVICE) * 0.8
+        sh_rest = torch.randn(c, 15, 3, generator=gen, device=DEVICE) * 0.3
+        grad = torch.randn(c, 3, generator=gen, device=DEVICE)
+
+        def run(fn, *xs):
+            xs = [x.detach().clone().requires_grad_(True) for x in xs]
+            col = fn(3, *xs, w2c.to(xs[0].dtype))
+            return [col.detach()] + list(torch.autograd.grad(col, xs, grad.to(col.dtype)))
+
+        args = (means, sh_0, sh_rest)
+        got, _, seen = profiled_launches(lambda: run(shc.sh_color, *args), "21",
+                                         f"the SH colour over {c} rows")
+        check(seen["sh_color"] == 1 and seen["sh_color_backward"] == 1,
+              f"[21] {c} rows: the profiler saw {seen}, not one launch each way")
+        plain = run(shc.sh_color_plain, *args)
+        ref = run(shc.sh_color_plain, *(x.double() for x in args))
+        worst = 0.0
+        for name, k, p, r in zip(("colour", "means", "sh_0", "sh_rest"), got, plain, ref):
+            own = (p.double() - r).norm().item()
+            gap = (k.double() - r).norm().item()
+            check(gap <= 2 * own + 1e-6 * r.norm().item(),
+                  f"[21] {c} rows: {name} {gap:.3e} from float64, the plain f32 version "
+                  f"{own:.3e}")
+            worst = max(worst, (k - p).abs().max().item())
+            log(f"[21] {c} rows: {name} {gap:.3e} from float64 (plain f32 {own:.3e}), "
+                f"max |kernel - plain| {(k - p).abs().max().item():.3e}")
+        del got, plain, ref
+        m, s0, sr = (x.contiguous() for x in args)
+        xs = [x.detach().clone().requires_grad_(True) for x in args]
+        col = shc.sh_color_plain(3, *xs, w2c)
+        timed = {
+            "sh_color": (lambda: shc._forward(3, m, s0, sr, w2c),
+                         lambda: shc.sh_color_plain(3, *xs, w2c)),
+            "sh_color_backward": (
+                lambda: shc._backward(3, grad, m, s0, sr, w2c),
+                lambda: torch.autograd.grad(col, xs, grad, retain_graph=True)),
+        }
+        for name, (kernel, plain_fn) in timed.items():
+            ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain_fn, 5, 1)
+            bound, by = bound_ms(c * SH_BYTES_PER_ROW[name], 0)
+            log(f"[21] {name}, {c} rows: {ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+                f"{SH_BYTES_PER_ROW[name]} B a row), {ms / bound:.2f}x; plain {plain_ms:.4f} ms")
+            if c == SH_ROWS[0]:
+                out[name] = (worst, ms, plain_ms, bound, by)
+        del timed, col, xs, m, s0, sr, means, sh_0, sh_rest, grad
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -4823,6 +4930,10 @@ def run(args) -> dict:
     bench_launches = bench_replays(card)
     bench_errs = bench_kernels()
 
+    # ---- phase 21: the SH colour's kernels at the train cells' slot counts
+    torch.cuda.empty_cache()
+    sh_numbers = sh_color_kernels()
+
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
         "tiled_forward": ("tile_forward.cu", "tile_raster.py:355", fw_err, fw_ms, fw_plain,
@@ -4865,6 +4976,19 @@ def run(args) -> dict:
             launches_refine=refine_launches[name], launches_bench=bench_launches[name],
             max_abs_err=reduce_errs[name], max_abs_err_bench=None,
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
+    for name, (err, ms, plain, bound, by) in sh_numbers.items():
+        kernels.append(dict(
+            name=name, route="cuda", source="easy_gaussian_splatting_torch/csrc/sh_color.cu",
+            replaces=None, launches=train_counts[name], launches_served=served_all[name],
+            launches_data_path=data_run["launches"][name],
+            launches_batched=batched["launches"][name],
+            launches_eval_cli=eval_run["launches"][name],
+            launches_mesh=mesh_launches.get(name),
+            launches_batched_graphed=batched_g["launches"][name],
+            launches_mesh_graphed=mesh_graphed[name],
+            launches_refine=refine_launches[name], launches_bench=bench_launches[name],
+            max_abs_err=err, max_abs_err_bench=None,
+            ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}

@@ -1,9 +1,10 @@
 """Forward render of a Gaussian model for one camera; counterpart of
 ``easy_gaussian_splatting_tpu/models/render.py``: activations (exp
 scales, sigmoid opacities), EWA projection, SH colour along the
-camera->Gaussian direction, one rasterizer call with a background colour,
-and a [0, 1] clamp on the image. The returned ``radii`` and the gradient of
-``absgrad_dummy`` (the absgrad side channel) feed ``update_statistics``."""
+camera->Gaussian direction (``ops/kernels/sh_color.py``), one rasterizer
+call with a background colour, and a [0, 1] clamp on the image. The
+returned ``radii`` and the gradient of ``absgrad_dummy`` (the absgrad side
+channel) feed ``update_statistics``."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.clip import clip, maximum
+from ..ops.clip import clip
+from ..ops.kernels.sh_color import sh_color
 from ..ops.projection import CameraIntrinsics, project_gaussians
 from ..ops.rasterize_ref import rasterize
 from ..ops.sh import eval_sh_color_flat
@@ -72,18 +74,10 @@ def render(
         shift = torch.stack([torch.zeros_like(camera.y_offset), camera.y_offset])
         proj = proj._replace(means2d=proj.means2d - shift[None, :])
 
-    r_cw = camera.w2c[:3, :3]
-    t_cw = camera.w2c[:3, 3]
-    cam = [
-        -(r_cw[0, j] * t_cw[0] + r_cw[1, j] * t_cw[1] + r_cw[2, j] * t_cw[2])
-        for j in range(3)
-    ]
-    dirs = torch.stack([params.means[:, j] - cam[j] for j in range(3)], dim=1)
-    dirs = dirs / maximum(torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-8)
-    c = params.sh_0.shape[0]
-    colors = eval_sh_color_flat(
-        sh_degree, params.sh_0.reshape(c, 3), params.sh_rest.reshape(c, -1), dirs
-    )
+    # one kernel each way on the card; on the CPU the plain ops, whose SH
+    # step is this module's `eval_sh_color_flat`, looked up at each call
+    colors = sh_color(sh_degree, params.means, params.sh_0, params.sh_rest, camera.w2c,
+                      sh_eval=eval_sh_color_flat)
 
     opac_eff = opacities * (proj.radii > 0.0).to(torch.float32)
     if rasterizer is None:

@@ -11,10 +11,12 @@ versions, one module per kernel:
                    (csrc/segsum_compact.cu) and their expansion to one row
                    per Gaussian (csrc/monotone_expand.cu)
 - ``group_reduce`` fixed-stride group sums (csrc/group_reduce.cu)
+- ``sh_color``     the view-dependent SH colour and its gradient, one
+                   launch each way (csrc/sh_color.cu)
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel (or raises) for a CUDA tensor, and counts its launches in a module
 integer (``launches``; ``backward_launches`` for ``tiled_backward``,
 ``compact_launches`` for ``segsum_compact``, ``expand_launches`` for
-``monotone_expand``).
+``monotone_expand``; ``backward_launches`` for ``sh_color``'s backward).
 """

@@ -39,6 +39,7 @@ EXTRA_FLAGS = {
     "segsum_compact": (),
     "monotone_expand": (),
     "group_reduce": (),
+    "sh_color": (),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

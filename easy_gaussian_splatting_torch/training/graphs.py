@@ -165,12 +165,14 @@ def graph_signature(cfg: Config, capacity: int, height: int, width: int, sh_degr
 
 # ----------------------------------------------------------- launch counts
 def _counters():
-    from ..ops.kernels import binkeys, group_reduce, segments, tile_raster
+    from ..ops.kernels import binkeys, group_reduce, segments, sh_color, tile_raster
 
+    # the seven main-path counters first, in the order readers zip them with
+    # their kernels' names; later kernels after them
     return (
         (binkeys, "launches"), (tile_raster, "launches"), (tile_raster, "backward_launches"),
         (segments, "launches"), (segments, "compact_launches"), (segments, "expand_launches"),
-        (group_reduce, "launches"),
+        (group_reduce, "launches"), (sh_color, "launches"), (sh_color, "backward_launches"),
     )
 
 

@@ -32,7 +32,7 @@ LOOP_SPANS = ["train.loop." + k for k in ("data", "dispatch", "loss_sync", "ckpt
 # the launch counters (graphs.launch_counts) and their kernels' symbols, in order
 KERNEL_SYMBOLS = ("binkeys_kernel", "tile_forward_kernel", "tile_backward_kernel",
                   "segsum_band_kernel", "segsum_compact_kernel", "monotone_expand_kernel",
-                  "group_reduce_kernel")
+                  "group_reduce_kernel", "sh_color_forward_kernel", "sh_color_backward_kernel")
 
 
 @pytest.fixture
