@@ -1,0 +1,7 @@
+"""``elementwise_ms.train``'s reading in ``train()``'s densify phase: per traced
+step, with the refine event's own device operations left out
+(``refine.steps_only``)."""
+
+from benchmark import refine
+
+read = refine.on_steps("elementwise_ms.train")

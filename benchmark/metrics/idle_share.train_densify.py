@@ -1,0 +1,6 @@
+"""``idle_share.train``'s reading in ``train()``'s densify phase, over the
+traced steps, the refine event's included."""
+
+from benchmark import refine
+
+read = refine.reader("idle_share.train")

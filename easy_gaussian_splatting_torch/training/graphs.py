@@ -186,6 +186,36 @@ def _add_counts(delta: Sequence[int]) -> None:
         setattr(mod, name, getattr(mod, name) + d)
 
 
+# ------------------------------------------------------------ loop counts
+# train()'s loop counters: its refine events and what they did (the counts
+# event_values already reads back, so counting waits on nothing), the
+# events that overflowed their free slots and the events that changed the
+# capacity; the intersection watchdog's overflowed steps and the binning's
+# rebuilds of the step; the losses read back that were not finite; the
+# programs captured (``Programs.prepare``, any owner's)
+LOOP_KEYS = ("refine_events", "split", "clone", "prune_low_opacity", "prune_large_radii",
+             "prune_large_scale", "event_overflows", "capacity_changes", "isect_overflows",
+             "binning_changes", "losses_nonfinite", "captures")
+_loop_counts = dict.fromkeys(LOOP_KEYS, 0)
+
+
+def loop_counts() -> Dict[str, int]:
+    """``train()``'s loop counters (``LOOP_KEYS``) since the last
+    :func:`reset_loop_counts`; the process's, as the launch counters are."""
+    return dict(_loop_counts)
+
+
+def reset_loop_counts() -> None:
+    for k in _loop_counts:
+        _loop_counts[k] = 0
+
+
+def count_loop(**deltas: int) -> None:
+    """Add to the loop counters (keys of ``LOOP_KEYS``)."""
+    for k, d in deltas.items():
+        _loop_counts[k] += int(d)
+
+
 def _collective_calls() -> collections.Counter:
     from ..parallel.collectives import CALLS
 
@@ -329,6 +359,7 @@ class Programs:
         self.entries[key] = p
         self.captures.append(dict(key=key, warmup_ms=p.warmup_ms, capture_ms=p.capture_ms,
                                   pool_bytes=p.pool_bytes, ahead=ahead))
+        count_loop(captures=1)
         logger.info(
             f"captured {self.what} ({self.describe(key)}){' ahead of need' if ahead else ''} in "
             f"{p.capture_ms:.1f} ms after {WARMUP_CALLS} warm-up calls in {p.warmup_ms:.1f} ms; "
@@ -476,6 +507,7 @@ class GraphedTrainStep:
         self.programs = Programs(self.device, TRAIN_GRAPHS, "a program over the train state",
                                  _describe, prefix="train")
         self._state = None
+        self._stale = False  # a retune's step awaits its first capture (:meth:`use`)
         self._next: Dict[int, tuple] = {}  # capacity -> (buffers, Programs) prepared ahead
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
         self._flags = [torch.zeros((), dtype=torch.bool, device=self.device) for _ in range(3)]
@@ -510,16 +542,28 @@ class GraphedTrainStep:
         """Drop the graphs, their pool and the buffers they hold (those
         prepared ahead too)."""
         self._drop_next()
+        self._stale = False
         if self._state is not None:
             self.programs.reset()
             self._state = self.signature = None
 
     def use(self, step: Callable) -> None:
-        """Run ``step`` from now on (a binning retune rebuilt it): every
-        program and prepared state goes, the state's buffers stay."""
+        """Run ``step`` from now on (a binning retune rebuilt it): the
+        prepared states go now, the programs and their pool before the next
+        capture of the step (:meth:`_fresh`), the state's buffers stay. Until
+        then the other programs (a refine event, a re-count in the same
+        iteration) replay as captured, over the same buffers: so the new
+        pool's first program is always the step's, whichever point of the
+        iteration the retune came from, and the pool's size with it."""
         self._step = step
         self._drop_next()
-        self.programs.reset()
+        self._stale = True
+
+    def _fresh(self) -> None:
+        """Drop the programs and pool a retune left (:meth:`use`)."""
+        if self._stale:
+            self._stale = False
+            self.programs.reset()
 
     def own(self, model: GaussianModelState, adam: AdamState):
         """Make this step's buffers hold ``model`` and ``adam`` (the first
@@ -530,7 +574,7 @@ class GraphedTrainStep:
         leaves = state_leaves(model, adam)
         if self._state is not None and self._state[0].shape[0] != model.capacity:
             self.programs.reset()  # another state: its programs go with the old one
-            self._state = None
+            self._state, self._stale = None, False
         if self._state is None:
             nxt = self._next.pop(model.capacity, None)
             self._drop_next()
@@ -588,6 +632,7 @@ class GraphedTrainStep:
         growth adopts them (:meth:`grown`) or :meth:`release`, its program
         in the state's pool. Returns False when the program is held
         already."""
+        self._fresh()
         model, adam = self.own(model, adam)
         if capacity == model.capacity:
             state, programs = self._state, self.programs
@@ -630,6 +675,7 @@ class GraphedTrainStep:
                     buf.copy_(v)
                 else:
                     buf.fill_(v)
+            self._fresh()
             self.own(model, adam)
             state = self._state
             self.signature = graph_signature(

@@ -20,9 +20,17 @@ logs why at its start; capacity compaction and a growth nothing was
 prepared for stay eager everywhere, as in the JAX package.
 The loop's pieces are spans (``utils/profiling.py::span``: ``train.loop.data``,
 ``.dispatch``, ``.loss_sync``, ``.ckpt``, ``.eval``, ``.densify``,
-``.other``), on the device's timeline in the ``profile_steps`` window;
-``EGS_TORCH_LOOP_TIMING=1`` sums them on the host clock and logs the sums
-every 100 steps, as ``EGS_TPU_LOOP_TIMING`` does.
+``.other``; inside ``.densify`` the event's ``train.refine.event``,
+``.isects`` and ``.warm``, inside ``.other`` ``train.reset``), on the
+device's timeline in the ``profile_steps`` window;
+``EGS_TORCH_LOOP_TIMING=1`` sums them on the host clock and logs the
+``train.loop.*`` sums every 100 steps, as ``EGS_TPU_LOOP_TIMING`` does. The
+loop also counts its refine events, what they did, the watchdog's
+overflows and rebuilds and the non-finite losses it reads back
+(``graphs.loop_counts``).
+
+``iter_train`` is the loop one iteration at a time (``train()`` drains it),
+and can start from a loop state in memory.
 
 ``train(cfg)`` with no scene object builds the ``Scene`` from ``cfg.data``
 (COLMAP or Blender), keeps the train and eval splits on the device
@@ -95,7 +103,14 @@ from ..models.render import CameraView, render
 from ..ops.lr_schedule import log_lerp_schedule
 from ..utils.profiling import Trace, span, time_spans
 from .config import Config
-from .graphs import GraphedTrainStep, grow_state, state_from, state_leaves, write_back
+from .graphs import (
+    GraphedTrainStep,
+    count_loop,
+    grow_state,
+    state_from,
+    state_leaves,
+    write_back,
+)
 from .precompile import growth_near, growth_targets, sh_bump_due
 
 logger = logging.getLogger(__name__)
@@ -547,12 +562,16 @@ def counted_isects(graphed: GraphedTrainStep, counter: Callable, cfg: Config, w2
 
 @dataclasses.dataclass
 class TrainLoopState:
-    """Host-side mutable training context."""
+    """Host-side mutable training context: the state, the active SH degree,
+    the last step taken and that step's loss dict (``losses``: device
+    tensors, which a graphed step owns: read or copy them before the next
+    step)."""
 
     model: GaussianModelState
     adam: AdamState
     active_sh_degree: int
     step: int = 0
+    losses: Optional[Dict[str, torch.Tensor]] = None
 
 
 def run_densify_with_growth(
@@ -572,6 +591,7 @@ def run_densify_with_growth(
         generator.set_state(gen_state)
         new_model, new_adam, info, overflow = densify_step(loop.model, loop.adam, generator)
         overflow, info = event_values(info, overflow)
+        count_loop(event_overflows=overflow)
         if not overflow:
             n = info["nbr_gaussians"]
             cap = loop.model.capacity
@@ -629,6 +649,7 @@ def run_sharded_densify_with_growth(
     while True:
         new_model, new_adam, info, overflow = sharded_densify_step(loop.model, loop.adam, seed)
         overflow, info = event_values(info, overflow)
+        count_loop(event_overflows=overflow)
         cap = loop.model.capacity * n_shards
         new_cap = aligned(min(cap * 2, cfg.max_capacity))
         if not overflow:
@@ -689,7 +710,32 @@ def train(
     ``Scene`` from ``cfg.data``. Returns the final loop state (also
     checkpointed at ``save_model_iterations`` when ``output`` is set).
     ``resume_from``: a checkpoint path; with optimizer state the run
-    continues exactly, without it Adam restarts."""
+    continues exactly, without it Adam restarts. It drains
+    :func:`iter_train`."""
+    run = iter_train(cfg, scene, resume_from, device)
+    while True:
+        try:
+            next(run)
+        except StopIteration as done:
+            return done.value
+
+
+def iter_train(
+    cfg: Config, scene=None, resume_from: Optional[str] = None,
+    device: str | torch.device = "cuda", start: Optional[TrainLoopState] = None,
+):
+    """:func:`train` one iteration at a time: a generator that yields the
+    loop state after each iteration (the step, the loss readback, the
+    refine event, the opacity reset and the SH bump done; ``losses`` the
+    step's loss dict) and returns the final state, as ``train()`` does.
+    ``start``, instead of ``resume_from``, continues from a loop state in
+    memory (model, Adam state, step, active SH degree) as a checkpoint with
+    optimizer state would; its tensors are taken as the first step takes a
+    state (on the card, donated to the graphed step). Between iterations the
+    caller may write the state's tensors in place and the loop's ``step``;
+    the next iteration takes them as they are. Closing the generator early
+    reads back the pending losses and frees the step's graphs; the state's
+    tensors stay."""
     from ..evaluation.evaluator import Evaluator
     from ..scene.scene import Scene, prefetch_frames
     from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -722,7 +768,14 @@ def train(
     if scene is None:
         scene = Scene.from_config(cfg, cfg.output if rank0 else None)
 
-    if resume_from is not None:
+    if start is not None:
+        if resume_from is not None:
+            raise ValueError("give start or resume_from, not both")
+        loop = TrainLoopState(model=start.model, adam=start.adam,
+                              active_sh_degree=start.active_sh_degree, step=start.step)
+        alive = loop.model.num_alive()
+        logger.info(f"continuing from step {loop.step} in memory ({alive} gaussians)")
+    elif resume_from is not None:
         model, sh_deg, start_step, adam = load_checkpoint(Path(resume_from), dev)
         if adam is None:
             logger.warning(
@@ -771,6 +824,8 @@ def train(
         """The step over the current ``render_fn`` (after a binning retune);
         a graphed step keeps the state's buffers and drops its programs."""
         nonlocal train_step
+        if train_step is not None:
+            count_loop(binning_changes=1)
         step = (make_train_step(cfg, render_fn) if mesh is None
                 else make_mesh_train_step(cfg, mesh, render_fn))
         if not graphed:
@@ -854,6 +909,7 @@ def train(
         cap = cfg.isect_mult * capacity_now()
         if n > cap:
             overflow_steps += 1
+            count_loop(isect_overflows=1)
             logger.warning(
                 f"step {at_step}: {n} intersections exceeded capacity {cap:.0f}: "
                 f"that step's gradient was zeroed ({overflow_steps} overflow steps total)"
@@ -977,6 +1033,7 @@ def train(
             losses = old.get()
             n_isects = losses.pop("isects", None)
             last_loss = losses["total"]
+            count_loop(losses_nonfinite=not math.isfinite(last_loss))
             if tb_writer is not None:
                 tb_report(tb_writer, old_step, {"train/loss": losses})
             if n_isects is not None:
@@ -997,168 +1054,184 @@ def train(
         data_iter = (frame_cache.get(i) for i in shuffled)
     else:
         data_iter = prefetch_frames(scene, "train", shuffle=True, num_workers=cfg.dataloader_workers)
-    while True:
-        with span("train.loop.data"):
-            data = next(data_iter, None)
-        if data is None or loop.step >= cfg.total_iterations:
-            # resumed runs start mid-schedule; the index tiling still spans
-            # the full budget
-            break
-        loop.step += 1
-        step = loop.step
-        all_tb_info: Dict[str, Any] = {}
+    try:
+        while True:
+            with span("train.loop.data"):
+                data = next(data_iter, None)
+            if data is None or loop.step >= cfg.total_iterations:
+                # resumed runs start mid-schedule; the index tiling still spans
+                # the full budget
+                break
+            loop.step += 1
+            step = loop.step
+            all_tb_info: Dict[str, Any] = {}
 
-        if cfg.profile_steps > 0 and cfg.output is not None and rank0:
-            if step == 10 and profiler is None:
-                profiler = Trace(Path(cfg.output) / "profile")
-                profiler.start()
-            elif profiler is not None and step == 10 + cfg.profile_steps:
-                profiler.stop()
-                profiler = None
+            if cfg.profile_steps > 0 and cfg.output is not None and rank0:
+                if step == 10 and profiler is None:
+                    profiler = Trace(Path(cfg.output) / "profile")
+                    profiler.start()
+                elif profiler is not None and step == 10 + cfg.profile_steps:
+                    profiler.stop()
+                    profiler = None
 
-        in_refine = cfg.refine_start < step <= cfg.refine_stop
-        densify_now = in_refine and (step - cfg.refine_start) % cfg.refine_every == 0
-        reset_now = in_refine and (step - cfg.refine_start) % cfg.reset_opacities_every == 0
+            in_refine = cfg.refine_start < step <= cfg.refine_stop
+            densify_now = in_refine and (step - cfg.refine_start) % cfg.refine_every == 0
+            reset_now = in_refine and (step - cfg.refine_start) % cfg.reset_opacities_every == 0
 
-        with span("train.loop.dispatch"):
-            if not autotuned:
-                autotune_isect_mult(data)
-                autotuned = True
-            w2c, K, image, mask = _frame_tensors(data, dev)
-            height = data["height"]
-            if mesh is not None:
-                if step == 1:
-                    _check_same_frame(w2c, mesh)
-                image, mask = _pad_rows(image, mask, pad_unit)
-                height = image.shape[0]
-            loop.model, loop.adam, ld = train_step(
-                loop.model, loop.adam, w2c, K, image, mask,
-                means_lr(step), in_refine, densify_now, reset_now,
-                height=height, width=data["width"], sh_degree=loop.active_sh_degree,
-            )
-
-        log_now = (
-            step == 1
-            or step % cfg.log_every == 0
-            or step % cfg.eval_every == 0
-            or densify_now
-        )
-        with span("train.loop.loss_sync"):
-            if log_now or step % 10 == 0:
-                pending_losses.append((step, _PendingScalars(ld)))
-                _drain_losses(min_pending=3)
-
-        with span("train.loop.ckpt"):
-            if step in save_iters and cfg.output is not None:
-                model = full_state(loop.model)
-                adam = full_state(loop.adam) if cfg.save_optimizer_state else None
-                if rank0:
-                    save_checkpoint(
-                        Path(cfg.output) / "checkpoints" / f"iterations_{step}.npz",
-                        model, loop.active_sh_degree, step, adam=adam,
-                    )
-                del model, adam
-
-        with span("train.loop.eval"):
-            if scene.nbr_data("eval") > 0 and (step == 1 or step % cfg.eval_every == 0):
-                # full single-device frames of the whole model, on rank 0
-                model = full_state(loop.model)
-                if rank0:
-                    metrics = evaluator.evaluate(
-                        scene, "eval", model, loop.active_sh_degree, background,
-                        num_workers=cfg.dataloader_workers, cache=eval_cache,
-                    )
-                    for k, v in metrics.items():
-                        if "render" in k:
-                            all_tb_info[f"render/{k}"] = v
-                        elif k in ("psnr", "ssim", "lpips", "lpips_proxy", "fps", "latency_ms",
-                                   "latency_device_ms"):
-                            all_tb_info[f"eval/{k}"] = v
-                    logger.info("eval @ step %d: %s", step, ", ".join(
-                        f"{k}={v:.4f}" for k, v in metrics.items() if isinstance(v, float)))
-                del model
+            with span("train.loop.dispatch"):
+                if not autotuned:
+                    autotune_isect_mult(data)
+                    autotuned = True
+                w2c, K, image, mask = _frame_tensors(data, dev)
+                height = data["height"]
                 if mesh is not None:
-                    dist.barrier()
+                    if step == 1:
+                        _check_same_frame(w2c, mesh)
+                    image, mask = _pad_rows(image, mask, pad_unit)
+                    height = image.shape[0]
+                loop.model, loop.adam, ld = train_step(
+                    loop.model, loop.adam, w2c, K, image, mask,
+                    means_lr(step), in_refine, densify_now, reset_now,
+                    height=height, width=data["width"], sh_degree=loop.active_sh_degree,
+                )
+                loop.losses = ld
 
-        with span("train.loop.densify"):
-            if densify_now:
-                if gauss:
-                    info = run_sharded_densify_with_growth(loop, sharded_densify_step, generator,
-                                                           cfg, mesh)
-                else:
-                    info = run_densify_with_growth(loop, densify_step, generator, cfg, grow)
-                # on the grown population, so the next step's capacity covers it
-                check_isect_capacity(data)
-                if precompiler is not None:
-                    # the next doubling (grown at 0.85 of the capacity; named
-                    # from 0.55), with the next SH degree when its bump may
-                    # come first, captured once the growth is near; a
-                    # prepared capacity the rule no longer names goes
-                    targets = growth_targets(cfg, info["nbr_gaussians"], loop.model.capacity,
-                                             loop.active_sh_degree)
-                    precompiler.settle({c for c, _ in targets})
-                    if growth_near(alive, info["nbr_gaussians"], loop.model.capacity):
-                        for cap_t, sh_t in targets:
-                            precompiler.warm(cfg, loop.model, loop.adam, data["height"],
-                                             data["width"], sh_t, cap_t,
-                                             frame=(w2c, K, image, mask))
-                alive = info["nbr_gaussians"]
-                all_tb_info["train/densify"] = {"split": info["split"], "clone": info["clone"]}
-                all_tb_info["train/prune"] = {
-                    "low_opacity": info["prune_low_opacity"],
-                    "large_radii": info["prune_large_radii"],
-                    "large_scale": info["prune_large_scale"],
-                }
-                all_tb_info["train/nbr_gaussians"] = info["nbr_gaussians"]
-
-        with span("train.loop.other"):
-            if reset_now:
-                loop.model, loop.adam = reset_step(loop.model, loop.adam)
-
-            if precompiler is not None and sh_bump_due(cfg, step, loop.active_sh_degree):
-                precompiler.warm(cfg, loop.model, loop.adam, data["height"], data["width"],
-                                 loop.active_sh_degree + 1, loop.model.capacity,
-                                 frame=(w2c, K, image, mask))
-            if cfg.sh_degree_interval != 0 and step % cfg.sh_degree_interval == 0:
-                loop.active_sh_degree = min(loop.active_sh_degree + 1, cfg.sh_degree)
-
-            if tb_writer is not None and log_now:
-                tb_report(tb_writer, step, all_tb_info)
-
-            if view_src is not None:
-                view_src.active_sh_degree = loop.active_sh_degree
-                if gauss:
-                    view_src.model = full_state(loop.model)
-            if viewer is not None:
-                viewer.update_render_image()
-
-        if step % 100 == 0:
-            elapsed = time.time() - t_start
-            logger.info(
-                f"step {step}/{cfg.total_iterations} loss={last_loss:.5f} "
-                f"({step / elapsed:.2f} it/s)"
+            log_now = (
+                step == 1
+                or step % cfg.log_every == 0
+                or step % cfg.eval_every == 0
+                or densify_now
             )
-            if totals:
-                loop_s = {k[len("train.loop."):]: v for k, v in totals.items()
-                          if k.startswith("train.loop.")}
-                parts = " ".join(f"{k}={v * 1e3 / 100:.1f}ms" for k, v in
-                                 sorted(loop_s.items(), key=lambda kv: -kv[1]))
-                logger.info(f"loop timing (per step over last 100): {parts} "
-                            f"total={sum(loop_s.values()) * 1e3 / 100:.1f}ms")
-                totals.clear()
+            with span("train.loop.loss_sync"):
+                if log_now or step % 10 == 0:
+                    pending_losses.append((step, _PendingScalars(ld)))
+                    _drain_losses(min_pending=3)
 
-    time_spans(False)
-    _drain_losses(min_pending=0)
-    if precompiler is not None:
-        precompiler.shutdown()
-    if graphed:
-        train_step.reset()  # the returned state is its buffers, which stay
-    if profiler is not None:  # the run ended inside the window
-        profiler.stop()
-    if tb_writer is not None:
-        tb_writer.close()
-    if viewer is not None:
-        viewer.stop()
+            with span("train.loop.ckpt"):
+                if step in save_iters and cfg.output is not None:
+                    model = full_state(loop.model)
+                    adam = full_state(loop.adam) if cfg.save_optimizer_state else None
+                    if rank0:
+                        save_checkpoint(
+                            Path(cfg.output) / "checkpoints" / f"iterations_{step}.npz",
+                            model, loop.active_sh_degree, step, adam=adam,
+                        )
+                    del model, adam
+
+            with span("train.loop.eval"):
+                if scene.nbr_data("eval") > 0 and (step == 1 or step % cfg.eval_every == 0):
+                    # full single-device frames of the whole model, on rank 0
+                    model = full_state(loop.model)
+                    if rank0:
+                        metrics = evaluator.evaluate(
+                            scene, "eval", model, loop.active_sh_degree, background,
+                            num_workers=cfg.dataloader_workers, cache=eval_cache,
+                        )
+                        for k, v in metrics.items():
+                            if "render" in k:
+                                all_tb_info[f"render/{k}"] = v
+                            elif k in ("psnr", "ssim", "lpips", "lpips_proxy", "fps", "latency_ms",
+                                       "latency_device_ms"):
+                                all_tb_info[f"eval/{k}"] = v
+                        logger.info("eval @ step %d: %s", step, ", ".join(
+                            f"{k}={v:.4f}" for k, v in metrics.items() if isinstance(v, float)))
+                    del model
+                    if mesh is not None:
+                        dist.barrier()
+
+            with span("train.loop.densify"):
+                if densify_now:
+                    cap_before = capacity_now()
+                    # the program's replay and the readback of its counts
+                    with span("train.refine.event"):
+                        if gauss:
+                            info = run_sharded_densify_with_growth(loop, sharded_densify_step,
+                                                                   generator, cfg, mesh)
+                        else:
+                            info = run_densify_with_growth(loop, densify_step, generator, cfg,
+                                                           grow)
+                    count_loop(refine_events=1, capacity_changes=capacity_now() != cap_before,
+                               **{k: info[k] for k in INFO_KEYS if k != "nbr_gaussians"})
+                    # on the grown population, so the next step's capacity covers it
+                    with span("train.refine.isects"):
+                        check_isect_capacity(data)
+                    with span("train.refine.warm"):
+                        if precompiler is not None:
+                            # the next doubling (grown at 0.85 of the capacity;
+                            # named from 0.55), with the next SH degree when its
+                            # bump may come first, captured once the growth is
+                            # near; a prepared capacity the rule no longer names goes
+                            targets = growth_targets(cfg, info["nbr_gaussians"],
+                                                     loop.model.capacity, loop.active_sh_degree)
+                            precompiler.settle({c for c, _ in targets})
+                            if growth_near(alive, info["nbr_gaussians"], loop.model.capacity):
+                                for cap_t, sh_t in targets:
+                                    precompiler.warm(cfg, loop.model, loop.adam, data["height"],
+                                                     data["width"], sh_t, cap_t,
+                                                     frame=(w2c, K, image, mask))
+                    alive = info["nbr_gaussians"]
+                    all_tb_info["train/densify"] = {"split": info["split"], "clone": info["clone"]}
+                    all_tb_info["train/prune"] = {
+                        "low_opacity": info["prune_low_opacity"],
+                        "large_radii": info["prune_large_radii"],
+                        "large_scale": info["prune_large_scale"],
+                    }
+                    all_tb_info["train/nbr_gaussians"] = info["nbr_gaussians"]
+
+            with span("train.loop.other"):
+                if reset_now:
+                    with span("train.reset"):
+                        loop.model, loop.adam = reset_step(loop.model, loop.adam)
+
+                if precompiler is not None and sh_bump_due(cfg, step, loop.active_sh_degree):
+                    precompiler.warm(cfg, loop.model, loop.adam, data["height"], data["width"],
+                                     loop.active_sh_degree + 1, loop.model.capacity,
+                                     frame=(w2c, K, image, mask))
+                if cfg.sh_degree_interval != 0 and step % cfg.sh_degree_interval == 0:
+                    loop.active_sh_degree = min(loop.active_sh_degree + 1, cfg.sh_degree)
+
+                if tb_writer is not None and log_now:
+                    tb_report(tb_writer, step, all_tb_info)
+
+                if view_src is not None:
+                    view_src.active_sh_degree = loop.active_sh_degree
+                    if gauss:
+                        view_src.model = full_state(loop.model)
+                if viewer is not None:
+                    viewer.update_render_image()
+
+            if step % 100 == 0:
+                elapsed = time.time() - t_start
+                logger.info(
+                    f"step {step}/{cfg.total_iterations} loss={last_loss:.5f} "
+                    f"({step / elapsed:.2f} it/s)"
+                )
+                if totals:
+                    loop_s = {k[len("train.loop."):]: v for k, v in totals.items()
+                              if k.startswith("train.loop.")}
+                    parts = " ".join(f"{k}={v * 1e3 / 100:.1f}ms" for k, v in
+                                     sorted(loop_s.items(), key=lambda kv: -kv[1]))
+                    logger.info(f"loop timing (per step over last 100): {parts} "
+                                f"total={sum(loop_s.values()) * 1e3 / 100:.1f}ms")
+                    totals.clear()
+            yield loop
+
+        _drain_losses(min_pending=0)
+    except GeneratorExit:  # closed early: what is pending is read all the same
+        _drain_losses(min_pending=0)
+        raise
+    finally:
+        time_spans(False)
+        if precompiler is not None:
+            precompiler.shutdown()
+        if graphed:
+            train_step.reset()  # the returned state is its buffers, which stay
+        if profiler is not None:  # the run ended inside the window
+            profiler.stop()
+        if tb_writer is not None:
+            tb_writer.close()
+        if viewer is not None:
+            viewer.stop()
     if gauss:  # every rank returns the whole state
         loop.model, loop.adam = full_state(loop.model), full_state(loop.adam)
     return loop

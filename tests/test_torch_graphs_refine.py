@@ -14,8 +14,9 @@ the card (``cuda`` marker; skipped elsewhere), each graphed against eager,
 bit for bit: the densify program at two capacities with an overflow
 retry, the reset program, both counters, the sharded densify in an NCCL
 world of one rank, a signature captured ahead against one captured at
-first use, and ``train()``'s eval peak memory below the copy the
-evaluator used to keep.
+first use, a retune's programs dropped at the next step and not before,
+and ``train()``'s eval peak memory below the copy the evaluator used to
+keep.
 
 Nothing here imports JAX, so on the card the file runs without the suite's
 conftest:
@@ -282,6 +283,42 @@ def test_graphed_densify_equals_eager_with_an_overflow_retry(cuda, rng):
     caps = [c["key"][1] for c in graphed.programs.captures if c["key"][0] == "densify"]
     assert caps == [CAP, 2 * CAP], caps
     assert graphed.state[0].shape[0] == got[-1][1]["param.means"].shape[0]
+
+
+@pytest.mark.cuda
+def test_a_retune_drops_the_programs_at_the_next_step(cuda, rng):
+    """After ``use`` (a binning retune) the refine event of the same
+    iteration replays the program it has; the next step drops every program
+    and captures first, into a fresh pool, and the event after it captures
+    again."""
+    arrays, alive, w2c, K, image, mask = scene_arrays(rng)
+    cfg = config_from_dict(dict(CFG, densify_grad_thresh=1e9))  # no growth
+    frame = [torch.as_tensor(x, device=cuda) for x in (w2c, K, image, mask)]
+    graphed = _step(cfg, cuda)
+    densify_step = ttrainer.make_densify_step(cfg, graphed)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    loop = ttrainer.TrainLoopState(*torch_state(arrays, alive, cuda), active_sh_degree=3)
+
+    def step():
+        loop.model, loop.adam, _ = graphed(loop.model, loop.adam, *frame, 1e-3, True, False,
+                                           False, height=H, width=W, sh_degree=3)
+
+    def kinds():
+        return [graphs._kind(c["key"]) for c in graphed.programs.captures]
+
+    step()
+    ttrainer.run_densify_with_growth(loop, densify_step, gen, cfg, graphed.grown)
+    assert kinds() == [None, "densify"]
+    pool = graphed.programs.pool
+    graphed.use(ttrainer.make_train_step(cfg, ttrainer.get_render_fn(cfg)))
+    ttrainer.run_densify_with_growth(loop, densify_step, gen, cfg, graphed.grown)
+    assert kinds() == [None, "densify"] and graphed.programs.pool is pool
+    step()
+    assert kinds() == [None, "densify", None] and list(graphed.programs.entries) == [
+        graphed.signature]
+    assert graphed.programs.pool is not pool
+    ttrainer.run_densify_with_growth(loop, densify_step, gen, cfg, graphed.grown)
+    assert kinds() == [None, "densify", None, "densify"]
 
 
 @pytest.mark.cuda
