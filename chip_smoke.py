@@ -237,7 +237,8 @@ and then through the port's benchmark entry point:
    point (4,194,304 slots) and of the 100k point at B = 4, with the
    limits of phases 4 and 8.
 
-and last the SH colour's kernels alone:
+and the SH colour's kernels alone (run first, after phase 2, as phase 22
+is):
 
 21. ``ops/kernels/sh_color.py``'s forward and backward against
    ``sh_color_plain`` at the train cells' slot counts (3,145,728 and
@@ -245,12 +246,24 @@ and last the SH colour's kernels alone:
    the gradients of means, sh_0 and sh_rest each within twice the plain
    f32 version's own distance from its float64 run, one launch each way
    as the profiler and the counters say; each kernel's ms beside its
-   byte bound (216 and 420 B a row) and the plain version's ms.
+   byte bound (216 and 420 B a row) and the plain version's ms;
 
-Then one JSON line of the nine kernels. Each main path's counts are
+22. (run first, after phase 2, before 21) ``ops/kernels/adam.py``'s grouped Adam step against
+   ``adam_plain`` at the same slot counts, SH degree 3 (59 values a slot),
+   in place with the graphed step's 0-d learning rate for the means and
+   its device skip flags off: parameters, moments and step counts equal
+   bit for bit, one launch as the profiler and the counter say; the
+   kernel's ms beside its byte bound (28 B a value), the plain version's
+   ms and the library's (``torch._fused_adam_`` a group, the skip flag its
+   ``found_inf``).
+
+Every main path that trains checks one Adam launch a step (``PER_STEP``),
+whatever the views a step renders.
+
+Then one JSON line of the ten kernels. Each main path's counts are
 zeroed just before it: ``launches`` counts the ``train()`` run of phase 9
-for the first four and the SH colour's two (one launch each way a step)
-and that of its reduction in phase 11 for the other three,
+for the first four, the SH colour's two (one launch each way a step) and
+Adam's (one a step), and that of its reduction in phase 11 for the other three,
 ``launches_served`` the viewer's build and requests of phase 5,
 ``launches_data_path`` the cached ``train(cfg)`` run of phase 13 (a),
 ``launches_batched`` phase 14's 10 timed batched steps,
@@ -264,11 +277,12 @@ and that of its reduction in phase 11 for the other three,
 800x800 frame for binkeys and tiled_forward, and from the first train
 step for the others but the SH colour's, whose come from phase 21 at
 3,145,728 rows (``replaces`` null: the JAX package leaves the colour to
-XLA's fusion); ``library_ms`` is null where no one PyTorch call
-computes the function. ``max_abs_err_bench`` is phase 20 (c)'s largest
+XLA's fusion), and Adam's, whose come from phase 22 at 3,145,728 slots
+(``replaces`` null: XLA's fusion too); ``library_ms`` is null where no
+one PyTorch call computes the function. ``max_abs_err_bench`` is phase 20 (c)'s largest
 difference from the plain version at the bench's points (null for the
 three reduction-only kernels and the SH colour's, which it does not
-check).
+check, nor Adam's).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; any failed
 phase exits non-zero before it.
@@ -703,7 +717,7 @@ KERNEL_SYMBOLS = {
     "tiled_backward": "tile_backward_kernel", "segsum_band": "segsum_band_kernel",
     "segsum_compact": "segsum_compact_kernel", "monotone_expand": "monotone_expand_kernel",
     "group_reduce": "group_reduce_kernel", "sh_color": "sh_color_forward_kernel",
-    "sh_color_backward": "sh_color_backward_kernel",
+    "sh_color_backward": "sh_color_backward_kernel", "adam": "adam_kernel",
 }
 
 
@@ -1041,6 +1055,7 @@ def check_step_gradients(got, want, tol=STEP_GRAD_RTOL, tag="8",
 
 # ------------------------------------------------------------------ phase 9
 def counts():
+    from easy_gaussian_splatting_torch.ops.kernels import adam as ka
     from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
     from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
     from easy_gaussian_splatting_torch.ops.kernels import segments as seg
@@ -1051,10 +1066,11 @@ def counts():
             "tiled_backward": tr.backward_launches, "segsum_band": seg.launches,
             "segsum_compact": seg.compact_launches, "monotone_expand": seg.expand_launches,
             "group_reduce": gr.launches, "sh_color": shc.launches,
-            "sh_color_backward": shc.backward_launches}
+            "sh_color_backward": shc.backward_launches, "adam": ka.launches}
 
 
 def zero_counts() -> None:
+    from easy_gaussian_splatting_torch.ops.kernels import adam as ka
     from easy_gaussian_splatting_torch.ops.kernels import binkeys as bk
     from easy_gaussian_splatting_torch.ops.kernels import group_reduce as gr
     from easy_gaussian_splatting_torch.ops.kernels import segments as seg
@@ -1063,12 +1079,20 @@ def zero_counts() -> None:
 
     bk.launches = tr.launches = tr.backward_launches = seg.launches = 0
     seg.compact_launches = seg.expand_launches = gr.launches = 0
-    shc.launches = shc.backward_launches = 0
+    shc.launches = shc.backward_launches = ka.launches = 0
 
 
 # each view a step renders launches these once (the SH colour at every degree)
-PER_STEP = {"binkeys": 1, "tiled_forward": 1, "tiled_backward": 1, "segsum_band": 1,
+PER_VIEW = {"binkeys": 1, "tiled_forward": 1, "tiled_backward": 1, "segsum_band": 1,
             "sh_color": 1, "sh_color_backward": 1}
+# and a step of one view these, with the grouped Adam update once a step
+PER_STEP = dict(PER_VIEW, adam=1)
+
+
+def per_step(views: int) -> dict:
+    """The main-path kernels' launches a step of ``views`` views makes:
+    the per-view kernels ``views`` times each, Adam once."""
+    return {k: n * views if k in PER_VIEW else n for k, n in PER_STEP.items()}
 
 
 def replays(step, model, height: int, width: int, sh_degree: int) -> bool:
@@ -1734,7 +1758,7 @@ def train_reduction(name, xyzs, rgbs, frames, device, seed):
     check(len(steps) == cfg.total_iterations == loop.step, f"{name}: trained {len(steps)} steps")
     check(rec["densify"] == 1 and rec["reset"] == 0,
           f"{name}: {rec['densify']} densify events and {rec['reset']} resets ran, want 1 and 0")
-    own = dict(REDUCE_KERNELS[name], tiled_forward=1, tiled_backward=1)
+    own = dict(REDUCE_KERNELS[name], tiled_forward=1, tiled_backward=1, adam=1)
     if name != "dense":
         own["binkeys"] = 1
     never = [k for k in ("segsum_band", "segsum_compact", "monotone_expand", "group_reduce")
@@ -2087,8 +2111,9 @@ def batched_step(cfg, state0, frames, single_ms: float, device, card: str) -> di
     got, got_adam, ld = step(state0, adam0, *views, lr, True, False, False, **kw)
     torch.cuda.synchronize()
     one = counts()
-    check(all(one[k] == BATCH for k in BATCH_KERNELS),
-          f"one batched step launched {one}, want {BATCH} of each of {BATCH_KERNELS}")
+    check(all(one[k] == BATCH for k in BATCH_KERNELS) and one["adam"] == 1,
+          f"one batched step launched {one}, want {BATCH} of each of {BATCH_KERNELS} and "
+          f"one adam")
     check(int(ld["isects"]) <= icap, f"a view was truncated: {int(ld['isects'])} > {icap}")
     diffs, equal = {}, True
     for name in PARAM_NAMES:
@@ -2137,8 +2162,8 @@ def batched_step(cfg, state0, frames, single_ms: float, device, card: str) -> di
         worst.append(int(ld["isects"]))
     timed = counts()
     peak = torch.cuda.max_memory_allocated()
-    check(all(timed[k] == BATCH * BATCH_STEPS for k in BATCH_KERNELS),
-          f"{BATCH_STEPS} batched steps launched {timed}")
+    check(all(timed[k] == BATCH * BATCH_STEPS for k in BATCH_KERNELS)
+          and timed["adam"] == BATCH_STEPS, f"{BATCH_STEPS} batched steps launched {timed}")
     check(max(worst) <= icap, f"a batched step was truncated: {max(worst)} > {icap}")
     med = float(np.median(times[1:]))
     log(f"[14] card: {card}")
@@ -3500,7 +3525,7 @@ def batched_graphed(cfg, state0, frames, device, card: str) -> dict:
         for c in captures) + ")")
     for mode in ("eager", "graphed"):
         p = prof[mode]
-        check(all(p["launches"][k] == 3 * BATCH * n for k, n in PER_STEP.items()),
+        check(all(p["launches"][k] == 3 * n for k, n in per_step(BATCH).items()),
               f"[18] (a) the profiler did not see {BATCH} of each kernel a {mode} batched step: "
               f"{p['launches']}")
         log(f"[18] (a) {mode} batched step, 3 back to back: device busy {p['busy_ms']:.2f} "
@@ -4214,8 +4239,8 @@ def bench_replays(card: str) -> dict:
         out = tbench.bench_point(100_000, 800, 800, iters=iters, batch=b)
         log(f"[20] in process, 100000 gaussians, B {b}: step_ms {out['step_ms']}")
     launches = counts()
-    want = {k: sum(b * (WARMUP_CALLS + 1 + iters) * n + (k == "binkeys") for b, iters in runs)
-            for k, n in PER_STEP.items()}
+    want = {k: sum((WARMUP_CALLS + 1 + iters) * per_step(b)[k] + (k == "binkeys")
+                   for b, iters in runs) for k in PER_STEP}
     got = {k: launches[k] for k in PER_STEP}
     check(got == want and not any(v for k, v in launches.items() if k not in PER_STEP),
           f"[20] bench_point's launches {launches}, want {want} (the counter's binkeys, "
@@ -4242,7 +4267,7 @@ def bench_replays(card: str) -> dict:
         check(len(p.graphed.captures) == 1,
               f"[20] B {b}: {len(p.graphed.captures)} captures, not 1")
         p.graphed.reset()
-        check_replays("20", {"steps": steps}, {k: b * n for k, n in PER_STEP.items()})
+        check_replays("20", {"steps": steps}, per_step(b))
         log(f"[20] card: {card}; 100000 gaussians, B {b}, the last profiled replay:")
         device_time(prof, 1, wall_ms, "step", "20", top=10)
         del p, model, adam
@@ -4401,6 +4426,117 @@ def sh_color_kernels() -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 22
+# a slot's values at SH degree 3, by group (59 in all)
+ADAM_SHAPES = {"means": (3,), "log_scales": (3,), "quats": (4,), "sh_0": (1, 3),
+               "sh_rest": (15, 3), "logit_opacities": ()}
+# bytes a parameter value: p, g, mu and nu read, p, mu and nu written
+ADAM_BYTES_PER_VALUE = 28
+ADAM_STEP = 12_636  # the step count of tandt_db_densify's groups
+
+
+def adam_kernel() -> dict:
+    """Phase 22: the grouped Adam kernel (``ops/kernels/adam.py``) against
+    ``adam_plain`` at ``SH_ROWS`` slots, seeded parameters, gradients and
+    moments, every group at ``ADAM_STEP``, in place with the graphed step's
+    0-d learning rate for the means and its device skip flags off: every
+    parameter, moment and step count equal bit for bit, and one launch, as
+    the profiler and the counter say. Then the kernel's ms alone (CUDA
+    events, the median of three runs of 20 launches in place), its byte
+    bound, ``adam_plain``'s ms (5 calls in place) and the library's:
+    ``torch._fused_adam_`` (PyTorch's fused Adam, as ``optim.Adam(fused=
+    True)`` calls it) once a group, the skip flag its ``found_inf`` and the
+    step count a float, timed as the kernel is. Returns (largest |kernel -
+    plain|, ms, plain ms, library ms, bound ms, bound by) at
+    ``SH_ROWS[0]``."""
+    import torch
+
+    from easy_gaussian_splatting_torch.models.gaussians import PARAM_NAMES, GaussianParams
+    from easy_gaussian_splatting_torch.models.optimizer import BETA1, BETA2, EPS, AdamState
+    from easy_gaussian_splatting_torch.ops.kernels import adam as ka
+
+    device = torch.device(DEVICE)
+    out = {}
+    for c in SH_ROWS:
+        gen = torch.Generator(device=DEVICE).manual_seed(c)
+
+        def draw(scale, positive=False):
+            f = torch.rand if positive else torch.randn
+            return GaussianParams(**{k: f((c,) + s, generator=gen, device=DEVICE) * scale
+                                     for k, s in ADAM_SHAPES.items()})
+
+        params, grads, mu, nu = draw(1.0), draw(1e-2), draw(1e-3), draw(1e-5, positive=True)
+        lrs = {k: 1e-3 for k in PARAM_NAMES}
+        lrs["means"] = torch.tensor(1.6e-5, dtype=torch.float32, device=DEVICE)
+        off = torch.zeros((), dtype=torch.bool, device=DEVICE)
+        skips = {k: off for k in PARAM_NAMES}
+
+        def fresh():
+            steps = {k: torch.tensor(ADAM_STEP, dtype=torch.int32, device=DEVICE)
+                     for k in PARAM_NAMES}
+            return params.map(torch.clone), AdamState(mu=mu.map(torch.clone),
+                                                      nu=nu.map(torch.clone), steps=steps)
+
+        def leaves(p, s):
+            return ([getattr(p, k) for k in PARAM_NAMES] + [getattr(s.mu, k) for k in PARAM_NAMES]
+                    + [getattr(s.nu, k) for k in PARAM_NAMES] + [s.steps[k] for k in PARAM_NAMES])
+
+        kp, ks = fresh()
+        before = ka.launches
+        got, prof = profiled(lambda: ka.adam_step(kp, grads, ks, lrs, skips, in_place=True))
+        counted = ka.launches - before
+        seen = sum(n for key, n in device_records(prof).items() if "adam_kernel" in key)
+        check(seen == 1 and counted == 1,
+              f"[22] {c} slots: the profiler saw {seen} Adam launches, the counter rose by "
+              f"{counted}, not one each")
+        pp, ps = fresh()
+        want = ka.adam_plain(pp, grads, ps, lrs, skips, in_place=True)
+        pairs = list(zip(leaves(*got), leaves(*want)))
+        worst = max((a.double() - b.double()).abs().max().item() for a, b in pairs)
+        unequal = [i for i, (a, b) in enumerate(pairs) if not torch.equal(
+            a.view(torch.int32) if a.is_floating_point() else a,
+            b.view(torch.int32) if b.is_floating_point() else b)]
+        check(not unequal, f"[22] {c} slots: leaves {unequal} differ from adam_plain's bits "
+              f"(max |kernel - plain| {worst:.3e})")
+        log(f"[22] {c} slots: the kernel's parameters, moments and step counts equal "
+            f"adam_plain's bit for bit, one launch (profiler and counter)")
+
+        lp, ls = fresh()
+        found_inf = {k: v.to(torch.float32) for k, v in skips.items()}
+
+        def library():
+            for k in PARAM_NAMES:
+                torch._fused_adam_(
+                    [getattr(lp, k)], [getattr(grads, k)], [getattr(ls.mu, k)],
+                    [getattr(ls.nu, k)], [], [(ls.steps[k] + 1).to(torch.float32)], lr=lrs[k],
+                    beta1=BETA1, beta2=BETA2, weight_decay=0.0, eps=EPS, amsgrad=False,
+                    maximize=False, found_inf=found_inf[k])
+
+        library()
+        lib_worst = max((getattr(lp, k).double() - getattr(want[0], k).double()).abs().max().item()
+                        for k in PARAM_NAMES)
+        del got, want, pairs, pp, ps
+        rows = [(k, (getattr(kp, k), getattr(grads, k), getattr(ks.mu, k), getattr(ks.nu, k),
+                     getattr(kp, k), getattr(ks.mu, k), getattr(ks.nu, k)),
+                 lrs[k], skips[k], ks.steps[k]) for k in PARAM_NAMES]
+        values = c * sum(int(np.prod(s)) for s in ADAM_SHAPES.values())
+        ms = float(np.median([cuda_ms(lambda: ka._launch(rows, device), 20) for _ in range(3)]))
+        lib_ms = float(np.median([cuda_ms(library, 20) for _ in range(3)]))
+        del lp, ls
+        pp, ps = fresh()
+        plain_ms = cuda_ms(lambda: ka.adam_plain(pp, grads, ps, lrs, skips, in_place=True), 5, 1)
+        bound, by = bound_ms(values * ADAM_BYTES_PER_VALUE, 0)
+        log(f"[22] adam, {c} slots ({values} values): {ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+            f"{ADAM_BYTES_PER_VALUE} B a value), {ms / bound:.2f}x; plain {plain_ms:.4f} ms; "
+            f"library (torch._fused_adam_ a group) {lib_ms:.4f} ms, its parameters up to "
+            f"{lib_worst:.3e} from the plain version's")
+        if c == SH_ROWS[0]:
+            out["adam"] = (worst, ms, plain_ms, lib_ms, bound, by)
+        del rows, kp, ks, pp, ps, params, grads, mu, nu
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ main
 REPLAY_PROBE_WINDOWS = 200  # profiled replays of the last program after the probe's runs
 PROBE_DIR = REPO / "build" / "replay_probe"  # what --replay-probe writes (kept after the run)
@@ -4548,6 +4684,14 @@ def run(args) -> dict:
     if args.replay_probe:
         replay_probe(args.replay_probe, args.gaussians, args.seed, device, card)
         return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}
+
+    # ---- phases 22 and 21, first: the grouped Adam kernel and the SH
+    # colour's kernels alone at the train cells' slot counts (late in the
+    # run the profiler saw none of their single launches, in three windows)
+    adam_numbers = adam_kernel()
+    torch.cuda.empty_cache()
+    sh_numbers = sh_color_kernels()
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -4930,10 +5074,6 @@ def run(args) -> dict:
     bench_launches = bench_replays(card)
     bench_errs = bench_kernels()
 
-    # ---- phase 21: the SH colour's kernels at the train cells' slot counts
-    torch.cuda.empty_cache()
-    sh_numbers = sh_color_kernels()
-
     measured = {
         "binkeys": ("binkeys.cu", "binkeys.py:154", bk_err, bk_ms, bk_plain, bk_bound, bk_by),
         "tiled_forward": ("tile_forward.cu", "tile_raster.py:355", fw_err, fw_ms, fw_plain,
@@ -4989,6 +5129,19 @@ def run(args) -> dict:
             launches_refine=refine_launches[name], launches_bench=bench_launches[name],
             max_abs_err=err, max_abs_err_bench=None,
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None))
+    err, ms, plain, lib, bound, by = adam_numbers["adam"]
+    kernels.append(dict(
+        name="adam", route="cuda", source="easy_gaussian_splatting_torch/csrc/adam.cu",
+        replaces=None, launches=train_counts["adam"], launches_served=served_all["adam"],
+        launches_data_path=data_run["launches"]["adam"],
+        launches_batched=batched["launches"]["adam"],
+        launches_eval_cli=eval_run["launches"]["adam"],
+        launches_mesh=mesh_launches.get("adam"),
+        launches_batched_graphed=batched_g["launches"]["adam"],
+        launches_mesh_graphed=mesh_graphed["adam"],
+        launches_refine=refine_launches["adam"], launches_bench=bench_launches["adam"],
+        max_abs_err=err, max_abs_err_bench=None,
+        ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}

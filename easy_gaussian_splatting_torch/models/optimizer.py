@@ -76,33 +76,14 @@ def adam_update(
     host with no tensor made (see :func:`select`). With ``in_place`` the
     new parameters, moments and step counts are written into the tensors of
     ``params`` and ``state``, which are returned (the same bits; the graphed
-    step's donated buffers, so that no second copy of the state is made)."""
-    new_params, new_mu, new_nu, new_steps = {}, {}, {}, {}
-    for name in PARAM_NAMES:
-        p = getattr(params, name)
-        mu = getattr(state.mu, name)
-        nu = getattr(state.nu, name)
-        step = state.steps[name]
-        g = getattr(grads, name)
-        step1 = step + 1
-        mu1 = BETA1 * mu + (1.0 - BETA1) * g
-        nu1 = BETA2 * nu + (1.0 - BETA2) * g * g
-        t = step1.to(torch.float32)
-        mu_hat = mu1 / (1.0 - torch.pow(BETA1, t))
-        nu_hat = nu1 / (1.0 - torch.pow(BETA2, t))
-        lr = lrs[name]
-        lr = lr if isinstance(lr, torch.Tensor) else float(lr)
-        upd = lr * mu_hat / (torch.sqrt(nu_hat) + EPS)
-        p1 = p - upd
-        skip = False if skips is None else skips.get(name, False)
-        new_params[name] = select(skip, p, p1, p if in_place else None)
-        new_mu[name] = select(skip, mu, mu1, mu if in_place else None)
-        new_nu[name] = select(skip, nu, nu1, nu if in_place else None)
-        new_steps[name] = select(skip, step, step1, step if in_place else None)
-    return (
-        GaussianParams(**new_params),
-        AdamState(mu=GaussianParams(**new_mu), nu=GaussianParams(**new_nu), steps=new_steps),
-    )
+    step's donated buffers, so that no second copy of the state is made).
+    CPU tensors take ``ops/kernels/adam.py::adam_plain``; on the card one
+    launch of ``csrc/adam.cu`` updates every group, with the same bits.
+    Gradients that are views (the sharded steps' unpacked collectives) are
+    made contiguous first."""
+    from ..ops.kernels.adam import adam_step  # which imports this module
+
+    return adam_step(params, grads.map(torch.Tensor.contiguous), state, lrs, skips, in_place)
 
 
 def mask_moments(

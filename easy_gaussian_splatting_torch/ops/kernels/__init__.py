@@ -13,6 +13,8 @@ versions, one module per kernel:
 - ``group_reduce`` fixed-stride group sums (csrc/group_reduce.cu)
 - ``sh_color``     the view-dependent SH colour and its gradient, one
                    launch each way (csrc/sh_color.cu)
+- ``adam``         one grouped Adam step over every parameter group, one
+                   launch (csrc/adam.cu)
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel (or raises) for a CUDA tensor, and counts its launches in a module

@@ -28,9 +28,9 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-kernel extra flags; binkeys compares floats against a threshold and
-# must round like its op-by-op PyTorch version, so no FMA contraction (the
-# tile kernels' shared eligibility test fixes its rounding with intrinsics,
-# csrc/tile_eligibility.cuh)
+# adam gives its plain version's bits, so both must round like their op-by-op
+# PyTorch versions: no FMA contraction (the tile kernels' shared eligibility
+# test fixes its rounding with intrinsics, csrc/tile_eligibility.cuh)
 EXTRA_FLAGS = {
     "binkeys": ("--fmad=false",),
     "tile_forward": (),
@@ -40,6 +40,7 @@ EXTRA_FLAGS = {
     "monotone_expand": (),
     "group_reduce": (),
     "sh_color": (),
+    "adam": ("--fmad=false",),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

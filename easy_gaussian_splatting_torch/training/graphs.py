@@ -165,7 +165,7 @@ def graph_signature(cfg: Config, capacity: int, height: int, width: int, sh_degr
 
 # ----------------------------------------------------------- launch counts
 def _counters():
-    from ..ops.kernels import binkeys, group_reduce, segments, sh_color, tile_raster
+    from ..ops.kernels import adam, binkeys, group_reduce, segments, sh_color, tile_raster
 
     # the seven main-path counters first, in the order readers zip them with
     # their kernels' names; later kernels after them
@@ -173,6 +173,7 @@ def _counters():
         (binkeys, "launches"), (tile_raster, "launches"), (tile_raster, "backward_launches"),
         (segments, "launches"), (segments, "compact_launches"), (segments, "expand_launches"),
         (group_reduce, "launches"), (sh_color, "launches"), (sh_color, "backward_launches"),
+        (adam, "launches"),
     )
 
 
@@ -262,10 +263,15 @@ class Captured:
         reserved = torch.cuda.memory_reserved(device)
         before, calls = launch_counts(), collections.Counter(_collective_calls())
         t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
+        # the captured graph is kept beside its executable until reset: the
+        # profiler (CUPTI) maps a replayed executable's nodes back to the graph
+        # they were captured in, and a profiled replay with that graph destroyed
+        # at instantiation (CUDAGraph's default) can crash in cuGraphLaunch
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
             self.out = fn()
+        self.graph.instantiate()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.launches = tuple(a - b for a, b in zip(launch_counts(), before))
         _add_counts([-d for d in self.launches])  # recorded, not launched

@@ -52,7 +52,7 @@ def test_build_all(cuda):
     secs = _build.build_all()
     assert set(secs) == {
         "binkeys", "tile_forward", "tile_backward", "segsum_band", "segsum_compact",
-        "monotone_expand", "group_reduce", "sh_color",
+        "monotone_expand", "group_reduce", "sh_color", "adam",
     }
 
 

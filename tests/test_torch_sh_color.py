@@ -154,13 +154,13 @@ def test_wrapper_on_the_cpu_is_the_render_composition(rng, degree):
 def test_counters_keep_the_seven_main_path_counters_first():
     """Readers zip the first seven counters with their kernels' names (the
     benchmark's traced window, the profiling tests), so the SH colour's two
-    come after them."""
+    come after them, and the Adam kernel's after those."""
     names = [(mod.__name__.rsplit(".", 1)[-1], attr) for mod, attr in graphs._counters()]
     assert names == [
         ("binkeys", "launches"), ("tile_raster", "launches"), ("tile_raster", "backward_launches"),
         ("segments", "launches"), ("segments", "compact_launches"),
         ("segments", "expand_launches"), ("group_reduce", "launches"),
-        ("sh_color", "launches"), ("sh_color", "backward_launches"),
+        ("sh_color", "launches"), ("sh_color", "backward_launches"), ("adam", "launches"),
     ]
     assert len(graphs.launch_counts()) == len(names)
 
